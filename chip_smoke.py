@@ -8,11 +8,19 @@ non-zero without printing a result:
 1. device   — ``nvidia-smi`` name and power limit, device name and compute
               capability (must be 9.0);
 2. build    — compiles ``person_capture_tpu_torch/csrc/*.cu`` (one ``nvcc``
-              per source, all started together) and times it;
-3. kernel   — the tone-map kernel against its plain PyTorch version on the
-              card: seeded ``[3, 2160, 3840]`` planes for every curve with
-              desat 0 and 0.25 (max abs ≤ 2e-3), and ``hdr_to_sdr_bgr`` on a
-              3840×2160 P010 frame (≤ 1 LSB); median times of ≥ 20 runs;
+              per source, all started together, with ``-Xptxas -v``, whose
+              register and spill lines it prints) and times it;
+3. kernel   — both entries of the tone-map kernel against their plain
+              PyTorch versions on the card at 3840×2160: the planar entry on
+              seeded ``[3, 2160, 3840]`` planes for every curve with desat 0
+              and 0.25 (max abs ≤ 2e-3), the fused P010→BGR entry on seeded
+              P010 planes for every curve × desat × dither (≤ 1 LSB, and at
+              most ``DIFFER_LIMIT`` of the pixels differing at all: a wrong
+              dither, Bayer tile or rounding moves 12 to 90 % of them by
+              one step); then, in turns, the times of the fused
+              entry, of the unfused composition it replaced
+              (``p010_unpack`` → ``ycbcr_to_rgb`` → planar entry →
+              quantize) and of the plain version;
 4. pipeline — the CLI face-identity pipeline (``build_config`` →
               ``build_runtime`` → ``make_engine`` → ``run``) at the CLI
               defaults (det 640, batch 64, ``--prescan``), SCRFD-2.5G and
@@ -20,8 +28,13 @@ non-zero without printing a result:
               640×480 PQ-coded synthetic video with full-resolution HDR
               stills rendered from 2560×1920 P010 planes; hits must land in
               the truth spans, one valid still per hit, and every still must
-              go through the kernel. The kernel is then held to its plain
-              version once more at the shape of the first still.
+              go through the fused entry;
+5. preview  — the same run with ``on_preview`` (as a GUI drives it): the
+              HDR preview pump renders 2560×1920 frames, dithered, through
+              the fused entry; one preview is held to the plain chain;
+6. main_path_shape — both entries against their plain versions once more
+              at the tone-map shape of the first still, every configuration
+              of phase 3 for the fused entry, and the same three timings.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -44,6 +57,12 @@ HBM_BYTES_PER_S = 3.35e12
 MUFU_OPS_PER_S = 16 * 132 * 1.98e9
 
 ALGOS = ("clip", "reinhard", "mobius", "hable", "bt.2390")
+# largest share of pixels in which the fused entry may differ from its plain
+# version, by one step: the MUFU pow against accurate powf moves a value
+# across a rounding edge in about 0.2 % of the pixels (0.75 % for a preview
+# against the general peak-detect chain); a dropped dither, a transposed
+# Bayer tile or truncation moves 12 to 90 % of them
+DIFFER_LIMIT = 0.02
 TRUTH_SEGMENTS = [(20, 60, 0), (90, 120, 0)]
 HDR_W, HDR_H = 2560, 1920
 
@@ -57,8 +76,11 @@ def require(cond: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def cuda_ms(fn, reps: int = 21, warmup: int = 3) -> float:
-    """Median device time of ``fn`` from CUDA events, after warm-up."""
+def cuda_ms(fn, reps: int = 11, inner: int = 10, warmup: int = 3) -> float:
+    """Device time of one call of ``fn``: CUDA events around ``inner``
+    back-to-back calls (so the host's per-call work hides behind the
+    device's), divided by ``inner``; the median of ``reps`` such runs, after
+    warm-up."""
     import torch
 
     for _ in range(warmup):
@@ -69,24 +91,82 @@ def cuda_ms(fn, reps: int = 21, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(inner):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / inner)
     return statistics.median(times)
 
 
-def tonemap_bound_ms(h: int, w: int, algo: str, desat: float):
-    """Least time for the tone-map on ``h×w`` pixels: the larger of 24 B/px
-    (12 read, 12 written) over HBM bandwidth and the MUFU work (each powf
-    = one log2 + one exp2) over the MUFU rate."""
-    curve_pows = 4 if algo == "bt.2390" else 0      # PQ inverse + PQ EOTF
-    pows = 6 + curve_pows + (3 * curve_pows if desat > 0 else 0) + 3
-    px = h * w
-    bytes_ms = 24.0 * px / HBM_BYTES_PER_S * 1e3
-    ops_ms = 2.0 * pows * px / MUFU_OPS_PER_S * 1e3
+def in_turns(fns: dict) -> dict:
+    """Times of several versions of one function, measured in turns
+    (A, B, C, C, B, A): each name gets the mean of its two readings, and
+    the readings themselves under ``<name>_runs``."""
+    order = list(fns) + list(fns)[::-1]
+    runs = {name: [] for name in fns}
+    for name in order:
+        runs[name].append(cuda_ms(fns[name]))
+    out = {name: statistics.mean(r) for name, r in runs.items()}
+    out.update({f"{name}_runs": r for name, r in runs.items()})
+    return out
+
+
+def needed_pows_per_px(rgb_prime) -> float:
+    """Mean pow evaluations per pixel that the main configuration (bt.2390,
+    desat 0.25) needs on these R'G'B' values ``[..., 3]``: 2 per channel for
+    the PQ EOTF; 4 (PQ inverse and PQ EOTF) for the curve on the max
+    channel, and on each channel where the desat weight is not zero (max
+    channel above 1), each only at or above the curve's knee (below it the
+    curve is the identity); 1 per channel for the sRGB OETF above its linear
+    segment. At most 25."""
+    import torch
+
+    from person_capture_tpu_torch.kernels import hdr as H
+    from person_capture_tpu_torch.kernels.color import pq_eotf, pq_inv_eotf
+
+    sdr = MAIN["sdr_nits"]
+    k = H.curve_constants(MAIN["algo"], MAIN["src_peak_nits"] / sdr, sdr)
+    lin = pq_eotf(rgb_prime) * (10000.0 / sdr)
+    lum = lin.amax(dim=-1)
+
+    def above_knee(x):
+        x = torch.clamp(x, 0.0, float(k["peak_c"])) * (sdr / 10000.0)
+        return pq_inv_eotf(x) / float(k["src_max_pq"]) >= float(k["ks"])
+
+    pows = 6.0 + 4.0 * above_knee(lum).float()
+    pows += 4.0 * (above_knee(lin) & (lum > 1.0)[..., None]).sum(-1)
+    enc_in = H.hdr_to_sdr_core(lin, MAIN["src_peak_nits"], sdr, MAIN["algo"],
+                               MAIN["desat"], MAIN["param"])
+    pows += (enc_in > 0.0031308).sum(-1)
+    return float(pows.mean())
+
+
+def tonemap_bound_ms(px: int, pows_per_px: float, bytes_per_px: float):
+    """Least time for the tone-map on ``px`` pixels: the larger of the
+    bytes the entry must move (planar: 12 B read and 12 written per pixel;
+    fused: 2 B of Y, 1 of chroma, 3 of BGR) over HBM bandwidth and the MUFU
+    work the data needs (each pow = one log2 + one exp2) over the MUFU
+    rate."""
+    bytes_ms = bytes_per_px * px / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2.0 * pows_per_px * px / MUFU_OPS_PER_S * 1e3
     return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms
                                    else "operations")
+
+
+def planar_bound(x) -> dict:
+    pows = needed_pows_per_px(x.permute(1, 2, 0))
+    bound_ms, bound_by = tonemap_bound_ms(x.shape[1] * x.shape[2], pows,
+                                          24.0)
+    return dict(bound_ms=bound_ms, bound_by=bound_by, pows_per_px=pows)
+
+
+def fused_bound(y, uv) -> dict:
+    from person_capture_tpu_torch.kernels.hdr import p010_rgb_prime
+
+    pows = needed_pows_per_px(p010_rgb_prime(y, uv, False))
+    bound_ms, bound_by = tonemap_bound_ms(y.numel(), pows, 6.0)
+    return dict(bound_ms=bound_ms, bound_by=bound_by, pows_per_px=pows)
 
 
 def phase_device():
@@ -115,7 +195,8 @@ def phase_build():
     with ThreadPoolExecutor(len(names)) as pool:
         libs = list(pool.map(build.build, names))
     emit(phase="build", sources=names, seconds=time.perf_counter() - t0,
-         libraries=[os.path.relpath(p) for p in libs])
+         libraries=[os.path.relpath(p) for p in libs],
+         ptxas={name: build.ptxas_report(name) for name in names})
 
 
 def _planes(shape, seed: int):
@@ -127,15 +208,30 @@ def _planes(shape, seed: int):
     return torch.from_numpy(x).cuda()
 
 
-def phase_kernel():
+def _p010(h: int, w: int, seed: int):
+    """Seeded P010 planes over the whole 10-bit code range, on the card."""
     import numpy as np
+
+    from person_capture_tpu_torch.kernels.hdr import plane_tensor
+
+    rng = np.random.default_rng(seed)
+    y = rng.integers(0, 1024, (h, w)).astype(np.uint16) << 6
+    uv = rng.integers(0, 1024, (h // 2, w // 2, 2)).astype(np.uint16) << 6
+    return plane_tensor(y, "cuda"), plane_tensor(uv, "cuda")
+
+
+# the main path's configuration: "auto" (bt.2390), desat 0.25, mobius param
+# 0.4 (SessionConfig defaults); the stills' "fast" preset renders undithered
+MAIN = dict(src_peak_nits=1000.0, sdr_nits=100.0, algo="auto", desat=0.25,
+            param=0.4)
+
+
+def planar_vs_plain(x):
+    """Planar entry against its plain version, every curve and desat."""
     import torch
 
     from person_capture_tpu_torch.kernels import hdr as H
-    from person_capture_tpu_torch.video.synthetic import p010_from_pq_bgr
 
-    h, w = 2160, 3840
-    x = _planes((3, h, w), seed=0)
     errs = {}
     for algo in ALGOS:
         for desat in (0.0, 0.25):
@@ -144,35 +240,102 @@ def phase_kernel():
                                               0.4)
             torch.cuda.synchronize()
             errs[f"{algo}/{desat}"] = float((got - want).abs().max())
+    return errs
+
+
+def differ(got, want):
+    """Largest difference of two uint8 BGR images in 8-bit steps, and the
+    share of pixels that differ in any channel."""
+    d = (got.int() - want.int()).abs()
+    return int(d.max()), float((d.amax(dim=-1) > 0).float().mean())
+
+
+def check_fused(y, uv, phase: str):
+    """Fused entry against its plain version, every curve × desat × dither:
+    prints the largest difference and the share of differing pixels of each
+    configuration, then requires ≤ 1 step and ≤ ``DIFFER_LIMIT``."""
+    import torch
+
+    from person_capture_tpu_torch.kernels import hdr as H
+
+    lsb, share = {}, {}
+    for algo in ALGOS:
+        for desat in (0.0, 0.25):
+            for dither in (False, True):
+                args = (False, 1000.0, 100.0, algo, desat, 0.4, dither)
+                got = H.hdr_to_sdr_bgr_cuda(y, uv, *args)
+                want = H.hdr_to_sdr_bgr_reference(y, uv, *args)
+                torch.cuda.synchronize()
+                key = f"{algo}/{desat}/{int(dither)}"
+                lsb[key], share[key] = differ(got, want)
+    emit(phase=phase, shape=list(y.shape), fused_max_lsb=lsb,
+         fused_differing_share=share)
+    max_lsb, max_share = max(lsb.values()), max(share.values())
+    require(max_lsb <= 1, f"fused entry vs plain at {tuple(y.shape)} "
+            f"differs by {max_lsb} LSB")
+    require(max_share <= DIFFER_LIMIT, f"fused entry vs plain at "
+            f"{tuple(y.shape)} differs in {max_share:.4%} of the pixels")
+    return max_lsb, max_share
+
+
+def unfused(y, uv):
+    """The render as it was before the fused entry, from public functions:
+    P010 unpack, Y'CbCr → R'G'B', the planar entry, quantize (undithered)."""
+    import torch
+
+    from person_capture_tpu_torch.kernels import hdr as H
+    from person_capture_tpu_torch.kernels.color import (YCBCR_BT2020,
+                                                        ycbcr_to_rgb)
+
+    yy, cb, cr = H.p010_unpack(y, uv)
+    rgb = torch.clamp(ycbcr_to_rgb(yy, cb, cr, YCBCR_BT2020), 0.0, 1.0)
+    enc = H.tonemap_planes_cuda(rgb.permute(2, 0, 1).contiguous(),
+                                MAIN["src_peak_nits"], MAIN["sdr_nits"],
+                                MAIN["algo"], MAIN["desat"], MAIN["param"])
+    enc = enc.permute(1, 2, 0) * 255.0
+    return torch.clamp(torch.round(enc), 0, 255).to(torch.uint8).flip(-1)
+
+
+def fused_timings(y, uv) -> dict:
+    """Fused entry, the unfused composition and the plain version on the
+    same planes, in turns; the unfused render is held to the plain one."""
+    import torch
+
+    from person_capture_tpu_torch.kernels import hdr as H
+
+    want = H.hdr_to_sdr_bgr_reference(y, uv, dither=False, **MAIN)
+    lsb = int((unfused(y, uv).int() - want.int()).abs().max())
+    require(lsb <= 1, f"unfused composition vs plain: {lsb} LSB")
+    torch.cuda.synchronize()
+    return in_turns({
+        "ms": lambda: H.hdr_to_sdr_bgr_cuda(y, uv, dither=False, **MAIN),
+        "unfused_ms": lambda: unfused(y, uv),
+        "plain_ms": lambda: H.hdr_to_sdr_bgr_reference(y, uv, dither=False,
+                                                       **MAIN)})
+
+
+def phase_kernel():
+    from person_capture_tpu_torch.kernels import hdr as H
+
+    h, w = 2160, 3840
+    x = _planes((3, h, w), seed=0)
+    errs = planar_vs_plain(x)
     max_err = max(errs.values())
-    require(max_err <= 2e-3, f"tone-map kernel vs plain max abs {max_err}")
+    require(max_err <= 2e-3, f"planar entry vs plain max abs {max_err}")
+    planar = in_turns({
+        "ms": lambda: H.tonemap_planes_cuda(x, **MAIN),
+        "plain_ms": lambda: H.tonemap_planes_reference(x, **MAIN)})
+    planar.update(shape=[3, h, w], max_abs_err=max_err, **planar_bound(x))
+    del x
 
-    # the main path's configuration: "auto" (bt.2390), desat 0.25, mobius
-    # param 0.4 (SessionConfig defaults)
-    args = (1000.0, 100.0, "auto", 0.25, 0.4)
-    ms = cuda_ms(lambda: H.tonemap_planes_cuda(x, *args))
-    plain_ms = cuda_ms(lambda: H.tonemap_planes_reference(x, *args))
-    bound_ms, bound_by = tonemap_bound_ms(h, w, "bt.2390", 0.25)
-
-    rng = np.random.default_rng(1)
-    bgr = rng.integers(0, 256, (h // 8, w // 8, 3), dtype=np.uint8)
-    y, uv = p010_from_pq_bgr(bgr, w, h)
-    yd = H.plane_tensor(y, "cuda")
-    uvd = H.plane_tensor(uv, "cuda")
-    fused = H.hdr_to_sdr_bgr(yd, uvd, algo="auto", desat=0.25, param=0.4,
-                             dither=False)
-    plain = H.p010_to_sdr_bgr(yd, uvd, algo="auto", desat=0.25, param=0.4,
-                              dither=False)
-    lsb = int((fused.int() - plain.int()).abs().max())
-    require(lsb <= 1, f"hdr_to_sdr_bgr kernel vs plain differs by {lsb} LSB")
-    bgr_ms = cuda_ms(lambda: H.hdr_to_sdr_bgr(yd, uvd, algo="auto",
-                                              desat=0.25, param=0.4,
-                                              dither=False))
-    emit(phase="kernel", shape=[3, h, w], max_abs_err=errs,
-         hdr_to_sdr_bgr_max_lsb=lsb, ms=ms, plain_ms=plain_ms,
-         bound_ms=bound_ms, bound_by=bound_by, hdr_to_sdr_bgr_ms=bgr_ms)
-    return {"max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    y, uv = _p010(h, w, seed=1)
+    max_lsb, max_share = check_fused(y, uv, "kernel_fused_check")
+    fused = fused_timings(y, uv)
+    fused.update(shape=[h, w, 3], max_lsb=max_lsb,
+                 max_differing_share=max_share, **fused_bound(y, uv))
+    emit(phase="kernel", planar=planar, planar_max_abs_err=errs,
+         fused=fused)
+    return planar, fused
 
 
 class _P010FromVideo:
@@ -209,15 +372,11 @@ class _P010FromVideo:
             self._cap.release()
 
 
-def phase_pipeline(work: str):
-    import csv
-
+def make_fixture(work: str):
+    """The verify recipe's fixture, re-coded as PQ: (video, ref, truth)."""
     import cv2
     import numpy as np
 
-    from person_capture_tpu_torch import main as M
-    from person_capture_tpu_torch.hdr.stills import validate_sdr_export
-    from person_capture_tpu_torch.kernels.hdr import TONEMAP_LAUNCHES
     from person_capture_tpu_torch.video.synthetic import (FacePlacement,
                                                           draw_face,
                                                           generate_video,
@@ -233,10 +392,12 @@ def phase_pipeline(work: str):
     draw_face(ref, FacePlacement(0, 0, (40, 40, 160, 160)))
     ref_path = os.path.join(work, "ref.png")
     cv2.imwrite(ref_path, ref)
-    truth = sv.identity_spans(0)
-    out = os.path.join(work, "out")
+    return vid, ref_path, sv.identity_spans(0)
 
-    os.environ["PERSON_CAPTURE_FORCE_HDR"] = "1"
+
+def cli_config(vid: str, ref_path: str, out: str):
+    from person_capture_tpu_torch import main as M
+
     argv = ["--video", vid, "--ref", ref_path, "--out", out, "--prescan",
             "--set", "compose_detect_person_for_face=false",
             "--set", "curate_enable=false",
@@ -247,19 +408,31 @@ def phase_pipeline(work: str):
             "--set", "tpu_profile=true"]
     ap = M.build_parser()
     args = ap.parse_args(argv)
-    cfg = M.build_config(args, ap)
-    t0 = time.perf_counter()
-    runtime = M.build_runtime(cfg, args, ap)
-    eng = M.make_engine(cfg, runtime, status=lambda m: None)
-    eng.hdr_source_factory = lambda video, w, h, fps: _P010FromVideo(video)
-    setup_s = time.perf_counter() - t0
+    return ap, args, M.build_config(args, ap)
 
-    TONEMAP_LAUNCHES.reset()
-    t0 = time.perf_counter()
-    res = eng.run()
-    run_s = time.perf_counter() - t0
-    launches = TONEMAP_LAUNCHES.count
-    require(res.ok, f"engine run failed: {res.error}")
+
+def reset_launches() -> None:
+    from person_capture_tpu_torch.kernels import hdr as H
+
+    H.TONEMAP_LAUNCHES.reset()
+    H.HDR_TO_SDR_LAUNCHES.reset()
+
+
+def read_launches() -> dict:
+    from person_capture_tpu_torch.kernels import hdr as H
+
+    return {"hdr_to_sdr_bgr": H.HDR_TO_SDR_LAUNCHES.count,
+            "tonemap_planes": H.TONEMAP_LAUNCHES.count}
+
+
+def check_stills(out: str, truth) -> list:
+    """Hits inside the truth spans, every span hit, one valid still per hit
+    at the HDR source's resolution; returns the index rows."""
+    import csv
+
+    import cv2
+
+    from person_capture_tpu_torch.hdr.stills import validate_sdr_export
 
     with open(os.path.join(out, "index.csv")) as fh:
         rows = list(csv.DictReader(fh))
@@ -269,7 +442,6 @@ def phase_pipeline(work: str):
     require(not outside, f"hits outside truth spans {truth}: {outside}")
     require(all(any(s <= f <= e for f in hits) for s, e in truth),
             f"not every truth span {truth} has a hit: {hits}")
-    stills = 0
     for r in rows:
         path = os.path.join(out, "crops", r["crop_path"])
         ok, why = validate_sdr_export(path)
@@ -279,28 +451,131 @@ def phase_pipeline(work: str):
                 and abs(sw - 4 * (int(r["x2"]) - int(r["x1"]))) <= 4,
                 f"still {path} ({sw}x{sh}) is not at the HDR source's "
                 f"resolution")
-        stills += 1
-    require(stills == len(hits), "one still per hit")
-    require(launches >= stills,
-            f"{launches} kernel launches for {stills} stills")
+    return rows
+
+
+def phase_pipeline(work: str):
+    from person_capture_tpu_torch import main as M
+
+    vid, ref_path, truth = make_fixture(work)
+    out = os.path.join(work, "out")
+    os.environ["PERSON_CAPTURE_FORCE_HDR"] = "1"
+    ap, args, cfg = cli_config(vid, ref_path, out)
+    t0 = time.perf_counter()
+    runtime = M.build_runtime(cfg, args, ap)
+    eng = M.make_engine(cfg, runtime, status=lambda m: None)
+    eng.hdr_source_factory = lambda video, w, h, fps: _P010FromVideo(video)
+    setup_s = time.perf_counter() - t0
+
+    reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    require(res.ok, f"engine run failed: {res.error}")
+    rows = check_stills(out, truth)
+    hits = [int(r["frame"]) for r in rows]
+    stills = len(rows)
+    require(launches["hdr_to_sdr_bgr"] >= stills,
+            f"{launches['hdr_to_sdr_bgr']} fused launches for {stills} "
+            f"stills")
     emit(phase="pipeline", truth_spans=truth, hits=len(hits),
-         hit_frames=hits, stills=stills, tonemap_launches=launches,
+         hit_frames=hits, stills=stills, launches=launches,
          setup_seconds=setup_s, seconds=run_s,
          source_frames_per_s=150 / run_s, prescan_spans=res.spans,
          stages=eng._timer.summary())
-    return rows, launches
+    return rows, launches, (vid, ref_path, truth, runtime)
 
 
-def phase_main_path_shape(rows):
-    """Kernel vs plain once more at the tone-map shape of the first still
-    (its crop mapped to the 2560×1920 source and legalized as the export
-    does)."""
+def phase_preview(work: str, fixture):
+    """The same run with ``on_preview``, as a GUI drives the engine: the
+    pump renders 2560×1920 P010 frames (dithered) through the fused entry
+    and downscales them to ``preview_max_dim`` (1280×960); a preview of any
+    other shape is an analysis frame (640×480)."""
+    import threading
+
     import numpy as np
     import torch
 
+    from person_capture_tpu_torch import main as M
+    from person_capture_tpu_torch.hdr.stills import (HdrExportParams,
+                                                     render_sdr_crop_from_p010)
+    from person_capture_tpu_torch.hdr_preview import tonemap_preview_frame
+    from person_capture_tpu_torch.kernels.hdr import (p010_to_sdr_bgr,
+                                                      plane_tensor)
+    from person_capture_tpu_torch.video.probe import color_range_full
+
+    vid, ref_path, truth, runtime = fixture
+    out = os.path.join(work, "out_preview")
+    _, _, cfg = cli_config(vid, ref_path, out)
+    lock = threading.Lock()
+    seen = {"previews": 0, "rendered": 0, "first": None}
+    scale = min(1.0, cfg.preview_max_dim / max(HDR_W, HDR_H))
+    rendered_shape = (round(HDR_H * scale), round(HDR_W * scale), 3)
+
+    def on_preview(img, idx):
+        with lock:
+            seen["previews"] += 1
+            if img.shape == rendered_shape:
+                seen["rendered"] += 1
+                if seen["first"] is None:
+                    seen["first"] = (idx, img.copy())
+
+    eng = M.make_engine(cfg, runtime, status=lambda m: None,
+                        on_preview=on_preview)
+    eng.hdr_source_factory = lambda video, w, h, fps: _P010FromVideo(video)
+    reset_launches()
+    t0 = time.perf_counter()
+    res = eng.run()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    require(res.ok, f"engine run with previews failed: {res.error}")
+    stills = len(check_stills(out, truth))
+    require(seen["rendered"] >= 1, f"no HDR preview rendered by the pump "
+            f"({seen['previews']} previews)")
+    require(launches["hdr_to_sdr_bgr"] >= stills + seen["rendered"],
+            f"{launches['hdr_to_sdr_bgr']} fused launches for {stills} "
+            f"stills and {seen['rendered']} rendered previews")
+
+    # the first rendered preview: again through the port (bit for bit), and
+    # its full-resolution render against the plain peak-detect chain
+    idx, img = seen["first"]
+    src = _P010FromVideo(vid)
+    y, uv = src.get_planes(idx)
+    src.release()
+    full_range = color_range_full(vid)
+    again = tonemap_preview_frame(y, uv, max_dim=int(cfg.preview_max_dim),
+                                  sdr_nits=cfg.sdr_nits,
+                                  tonemap=cfg.hdr_sdr_tonemap,
+                                  full_range=full_range, device="cuda")
+    require(np.array_equal(again, img),
+            "the pump's preview differs from tonemap_preview_frame")
+    p = HdrExportParams(tonemap=cfg.hdr_sdr_tonemap, sdr_nits=cfg.sdr_nits,
+                        full_range=full_range, color_match=False,
+                        speckle_cleanup=False, dither=True, device="cuda")
+    got = render_sdr_crop_from_p010(y, uv, (0, 0, HDR_W, HDR_H), p)
+    want = p010_to_sdr_bgr(
+        plane_tensor(y, "cuda"), plane_tensor(uv, "cuda"), full_range,
+        "pq", p.src_peak_nits, p.sdr_nits, p.tonemap, p.desat, p.tm_param,
+        dither=True, peak_detect=True).cpu().numpy()
+    lsb, share = differ(torch.from_numpy(got), torch.from_numpy(want))
+    require(lsb <= 1 and share <= DIFFER_LIMIT, f"preview render vs plain "
+            f"chain: {lsb} LSB, {share:.4%} of the pixels differ")
+    emit(phase="preview", previews=seen["previews"],
+         rendered_previews=seen["rendered"], stills=stills,
+         launches=launches, seconds=run_s, checked_frame=idx,
+         checked_shape=list(got.shape), max_lsb=lsb, differing_share=share)
+    return seen["rendered"]
+
+
+def phase_main_path_shape(rows):
+    """Both entries against their plain versions once more at the tone-map
+    shape of the first still (its crop mapped to the 2560×1920 source and
+    legalized as the export does), and the fused entry's timings there."""
+    import numpy as np
+
     from person_capture_tpu_torch.hdr.stills import (crop_planes,
                                                      scale_crop_xyxy_to_source)
-    from person_capture_tpu_torch.kernels import hdr as H
 
     r = rows[0]
     crop = scale_crop_xyxy_to_source(
@@ -308,15 +583,20 @@ def phase_main_path_shape(rows):
         (HDR_W, HDR_H))
     y = np.zeros((HDR_H, HDR_W), np.uint16)
     uv = np.zeros((HDR_H // 2, HDR_W // 2, 2), np.uint16)
-    yc, _ = crop_planes(y, uv, crop)
-    x = _planes((3, *yc.shape), seed=2)
-    got = H.tonemap_planes(x, 1000.0, 100.0, "auto", 0.25, 0.4)
-    want = H.tonemap_planes_reference(x, 1000.0, 100.0, "auto", 0.25, 0.4)
-    torch.cuda.synchronize()
-    err = float((got - want).abs().max())
-    require(err <= 2e-3, f"kernel vs plain at {tuple(x.shape)}: {err}")
-    emit(phase="main_path_shape", shape=list(x.shape), max_abs_err=err)
-    return err
+    h, w = crop_planes(y, uv, crop)[0].shape
+    x = _planes((3, h, w), seed=2)
+    errs = planar_vs_plain(x)
+    err = max(errs.values())
+    require(err <= 2e-3, f"planar entry vs plain at {(3, h, w)}: {err}")
+    del x
+    yd, uvd = _p010(h, w, seed=3)
+    max_lsb, max_share = check_fused(yd, uvd, "main_path_shape_fused_check")
+    fused = fused_timings(yd, uvd)
+    fused.update(shape=[h, w, 3], max_lsb=max_lsb,
+                 max_differing_share=max_share, **fused_bound(yd, uvd))
+    emit(phase="main_path_shape", planar_shape=[3, h, w],
+         planar_max_abs_err=err, fused=fused)
+    return err, fused
 
 
 def main() -> int:
@@ -330,22 +610,43 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_device()
     phase_build()
-    k = phase_kernel()
+    planar, fused = phase_kernel()
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build")
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_",
                                      dir=scratch) as work:
-        rows, launches = phase_pipeline(work)
-    k["max_abs_err"] = max(k["max_abs_err"], phase_main_path_shape(rows))
+        rows, launches, fixture = phase_pipeline(work)
+        phase_preview(work, fixture)
+    planar_err, still = phase_main_path_shape(rows)
+    source = "person_capture_tpu_torch/csrc/tonemap.cu"
+    replaces = "person_capture_tpu/kernels/hdr.py:217"
     print(json.dumps({"kernels": [{
-        "name": "tonemap_planes", "route": "cuda",
-        "source": "person_capture_tpu_torch/csrc/tonemap.cu",
-        "replaces": "person_capture_tpu/kernels/hdr.py:217",
-        "launches": launches, "max_abs_err": k["max_abs_err"],
-        "ms": k["ms"], "plain_ms": k["plain_ms"],
-        "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "name": "hdr_to_sdr_bgr", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches["hdr_to_sdr_bgr"],
+        "max_abs_err": max(fused["max_lsb"], still["max_lsb"]),
+        "max_abs_err_unit": "8-bit steps",
+        "max_differing_share": max(fused["max_differing_share"],
+                                   still["max_differing_share"]),
+        "pows_per_px": fused["pows_per_px"],
+        "ms": fused["ms"], "plain_ms": fused["plain_ms"],
+        "bound_ms": fused["bound_ms"], "bound_by": fused["bound_by"],
+        "library_ms": None, "unfused_ms": fused["unfused_ms"],
+        "shape": fused["shape"],
+        "still": {k: still[k] for k in ("shape", "ms", "plain_ms",
+                                        "unfused_ms", "bound_ms", "bound_by",
+                                        "pows_per_px")},
+    }, {
+        "name": "tonemap_planes", "route": "cuda", "source": source,
+        "replaces": replaces, "launches": launches["tonemap_planes"],
+        "max_abs_err": max(planar["max_abs_err"], planar_err),
+        "ms": planar["ms"], "plain_ms": planar["plain_ms"],
+        "bound_ms": planar["bound_ms"], "bound_by": planar["bound_by"],
+        "pows_per_px": planar["pows_per_px"],
+        "library_ms": None, "shape": planar["shape"],
+        "note": "counterpart of the public tonemap_planes_pallas; the main "
+                "path renders through the fused entry of the same source",
+    }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -189,23 +189,31 @@ def render_crop(y_crop: np.ndarray, uv_crop: np.ndarray,
                 params: HdrExportParams) -> torch.Tensor:
     """P010 crop planes (numpy) → uint8 BGR tensor on ``params.device``.
 
-    The plain PQ configuration (no peak-detect/contrast-recovery/gamut-map
-    — e.g. the "fast" quality preset) goes through the fused tone-map (the
-    hand-written CUDA kernel on a GPU); richer configurations take the
-    general torch chain."""
+    The plain PQ configuration (no contrast-recovery/gamut-map — e.g. the
+    "fast" quality preset) goes through the fused tone-map (the
+    hand-written CUDA kernel on a GPU). With peak-detect on, the measured
+    scene peak replaces the fixed source peak first: the rest of
+    ``p010_to_sdr_bgr``'s peak-detect chain is then the plain one, so it
+    takes the kernel too (the JAX package sends it through its jnp chain,
+    with the same result). Richer configurations take the general torch
+    chain."""
     check_ported(params)
-    from ..kernels.hdr import hdr_to_sdr_bgr, p010_to_sdr_bgr, plane_tensor
+    from ..kernels.hdr import (detect_peak_nits, hdr_to_sdr_bgr,
+                               p010_rgb_prime, p010_to_sdr_bgr, plane_tensor)
 
     y = plane_tensor(y_crop, params.device)
     uv = plane_tensor(uv_crop, params.device)
     clean_full = params.full_range or params.clean_range == "full"
-    plain = (params.transfer == "pq" and not params.peak_detect
-             and params.gamut == "clip"
+    plain = (params.transfer == "pq" and params.gamut == "clip"
              and float(params.contrast_recovery) == 0.0)
     if plain:
+        peak_nits = params.src_peak_nits
+        if params.peak_detect:
+            peak_nits = float(detect_peak_nits(
+                p010_rgb_prime(y, uv, clean_full)))
         return hdr_to_sdr_bgr(
             y, uv, full_range=clean_full, transfer=params.transfer,
-            src_peak_nits=params.src_peak_nits, sdr_nits=params.sdr_nits,
+            src_peak_nits=peak_nits, sdr_nits=params.sdr_nits,
             algo=params.tonemap, desat=params.desat, param=params.tm_param,
             dither=params.dither)
     return p010_to_sdr_bgr(

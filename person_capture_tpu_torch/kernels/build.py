@@ -44,23 +44,42 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
+def _report_path(library: str) -> str:
+    return library[:-3] + ".ptxas.txt"
+
+
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its library is already built;
-    returns the library path. Safe to call from several processes: each
-    compiles to its own temporary file and renames it into place."""
+    returns the library path. The compile also passes ``-Xptxas -v`` (it
+    changes no code, so it is not in the hash) and keeps those lines beside
+    the library for :func:`ptxas_report`. Safe to call from several
+    processes: each compiles to its own temporary files and renames them
+    into place."""
     out = library_path(name)
-    if os.path.isfile(out):
+    if os.path.isfile(out) and os.path.isfile(_report_path(out)):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", tmp,
            os.path.join(CSRC_DIR, f"{name}.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu "
                            f"(rc={proc.returncode}):\n{proc.stderr[-4000:]}")
+    report = [line.strip() for line in proc.stderr.splitlines()
+              if line.startswith("ptxas info") or "spill" in line]
+    with open(f"{tmp}.ptxas", "w") as fh:
+        fh.write("\n".join(report) + "\n")
+    os.replace(f"{tmp}.ptxas", _report_path(out))
     os.replace(tmp, out)
     return out
+
+
+def ptxas_report(name: str) -> list:
+    """Registers, shared memory and spills of each kernel in
+    ``csrc/<name>.cu``: the ``-Xptxas -v`` lines of its library's build."""
+    with open(_report_path(build(name))) as fh:
+        return fh.read().splitlines()
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,21 +1,30 @@
 """HDR→SDR conversion: P010/10-bit YCbCr planes → dithered SDR BGR.
 
-Torch port of ``person_capture_tpu/kernels/hdr.py``. Two implementations of
-the per-pixel plain-PQ chain (EOTF → tone-map → gamut → OETF):
+Torch port of ``person_capture_tpu/kernels/hdr.py``. The plain-PQ chain
+(EOTF → tone-map → gamut → OETF) has two entries, each with a plain
+PyTorch version (the CPU path, and the yardstick the tests and
+``chip_smoke.py`` hold the kernel to) and a hand-written Hopper kernel in
+``csrc/tonemap.cu``:
 
-  * :func:`tonemap_planes_reference` — plain PyTorch, the CPU path and the
-    yardstick the tests and ``chip_smoke.py`` hold the kernel to;
-  * ``csrc/tonemap.cu`` — the hand-written Hopper kernel that replaces the
-    TPU's ``tonemap_planes_pallas``.
+  * :func:`hdr_to_sdr_bgr` — P010 planes → uint8 BGR in one fused pass
+    (kernel entry ``hdr_to_sdr_bgr_launch``; plain version
+    :func:`hdr_to_sdr_bgr_reference`); replaces the TPU's
+    ``tonemap_planes_pallas`` together with the glue around it;
+  * :func:`tonemap_planes` — planar R'G'B' → encoded planar RGB, the
+    counterpart of ``tonemap_planes_pallas`` itself (kernel entry
+    ``tonemap_planes_launch``; plain version
+    :func:`tonemap_planes_reference`).
 
-:func:`tonemap_planes` picks by the input's device: a CUDA tensor launches
-the kernel (or raises), a CPU tensor takes the plain version. Every other
-function here is plain torch on the caller's device.
+A CUDA tensor launches the kernel (or raises), a CPU tensor takes the plain
+version. The kernel computes no curve constant: :func:`curve_constants`
+does, once per launch on the host. Every other function here is plain torch
+on the caller's device.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Optional
 
@@ -23,10 +32,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from .color import (BT2020_TO_BT709, PQ_PEAK_NITS, YCBCR_BT2020,
+from .color import (BT2020_TO_BT709, PQ_PEAK_NITS, YCBCR_BT2020, _f32,
                     bt1886_oetf, hlg_to_linear, normalize_full,
                     normalize_limited, pq_eotf, srgb_oetf, ycbcr_to_rgb)
-from .tonemap import (TONEMAPPERS, apply_tonemap, tm_bt2390, tm_clip,
+from .tonemap import (TONEMAPPERS, apply_tonemap, bt2390_knee, hable_norm,
+                      mobius_coeffs, reinhard_gain, tm_bt2390, tm_clip,
                       tm_hable, tm_mobius, tm_reinhard)
 
 _BAYER4 = (np.array([[0, 8, 2, 10],
@@ -188,6 +198,13 @@ def detect_peak_nits(rgb_prime_pq, floor_nits: float = 203.0,
     return torch.clamp(nits, min=floor_nits)
 
 
+def p010_rgb_prime(y_u16, uv_u16, full_range: bool = False,
+                   chroma_upsample: str = "linear"):
+    """P010 planes → BT.2020 R'G'B' ``[H, W, 3]`` float32, clamped to 0..1."""
+    y, cb, cr = p010_unpack(y_u16, uv_u16, full_range, chroma_upsample)
+    return torch.clamp(ycbcr_to_rgb(y, cb, cr, YCBCR_BT2020), 0.0, 1.0)
+
+
 def p010_to_sdr_bgr(y_u16, uv_u16, full_range: bool = False,
                     transfer: str = "pq", src_peak_nits: float = 1000.0,
                     sdr_nits: float = 100.0, algo: str = "bt.2390",
@@ -197,8 +214,7 @@ def p010_to_sdr_bgr(y_u16, uv_u16, full_range: bool = False,
                     contrast_recovery: float = 0.0, gamut: str = "clip"):
     """Full P010 HDR frame → SDR BGR uint8, every option of the chain
     (counterpart of ``p010_to_sdr_bgr_jnp``)."""
-    y, cb, cr = p010_unpack(y_u16, uv_u16, full_range, chroma_upsample)
-    rgb_prime = torch.clamp(ycbcr_to_rgb(y, cb, cr, YCBCR_BT2020), 0.0, 1.0)
+    rgb_prime = p010_rgb_prime(y_u16, uv_u16, full_range, chroma_upsample)
     if peak_detect and transfer == "pq":
         peak_nits = detect_peak_nits(rgb_prime)
         lin = pq_eotf(rgb_prime) * PQ_PEAK_NITS / sdr_nits
@@ -213,38 +229,137 @@ def p010_to_sdr_bgr(y_u16, uv_u16, full_range: bool = False,
     return sdr_encode(map_gamut_709(_to_709(mapped), gamut), dither, oetf)
 
 
+
+
 # ---------------------------------------------------------------------------
-# The fused per-pixel chain: plain version and hand-written CUDA kernel
+# The plain-PQ per-pixel chain: plain versions and the hand-written kernels
 # ---------------------------------------------------------------------------
 
 _ALGO_CODES = {tm_clip: 0, tm_reinhard: 1, tm_mobius: 2, tm_hable: 3,
                tm_bt2390: 4}
 
 
+def _tonemap_rgb(rgb_prime, src_peak_nits: float, sdr_nits: float,
+                 algo: str, desat: float, param: Optional[float]):
+    """The chain on R'G'B' ``[..., 3]``: PQ EOTF → tone-map → BT.2020→709 →
+    clip → sRGB OETF. Returns encoded RGB in 0..1."""
+    peak = max(1.0 + 1e-3, float(src_peak_nits) / float(sdr_nits))
+    lin = pq_eotf(rgb_prime) * (PQ_PEAK_NITS / sdr_nits)
+    mapped = apply_tonemap(lin, peak, algo=algo, desat=desat, param=param,
+                           sdr_nits=sdr_nits)
+    return srgb_oetf(torch.clamp(_to_709(mapped), 0.0, 1.0))
+
+
 def tonemap_planes_reference(rgb_prime_planar, src_peak_nits: float = 1000.0,
                              sdr_nits: float = 100.0, algo: str = "bt.2390",
                              desat: float = 0.25,
                              param: Optional[float] = None):
-    """Plain PyTorch version of the fused chain on planar R'G'B'
-    ``[3, H, W]`` float32: PQ EOTF → tone-map → BT.2020→709 → clip → sRGB
-    OETF. Returns encoded planar RGB in 0..1."""
-    peak = max(1.0 + 1e-3, float(src_peak_nits) / float(sdr_nits))
+    """Plain PyTorch version of the planar entry on R'G'B' ``[3, H, W]``
+    float32. Returns encoded planar RGB in 0..1."""
     rgb = rgb_prime_planar.to(torch.float32).permute(1, 2, 0)
-    lin = pq_eotf(rgb) * (PQ_PEAK_NITS / sdr_nits)
-    mapped = apply_tonemap(lin, peak, algo=algo, desat=desat, param=param,
-                           sdr_nits=sdr_nits)
-    out = srgb_oetf(torch.clamp(_to_709(mapped), 0.0, 1.0))
+    out = _tonemap_rgb(rgb, src_peak_nits, sdr_nits, algo, desat, param)
     return out.permute(2, 0, 1).contiguous()
 
 
-class _TonemapParams(ctypes.Structure):
-    _fields_ = [("algo", ctypes.c_int32), ("peak", ctypes.c_float),
-                ("sdr_nits", ctypes.c_float), ("desat", ctypes.c_float),
-                ("param", ctypes.c_float), ("m", ctypes.c_float * 9)]
+def hdr_to_sdr_bgr_reference(y_u16, uv_u16, full_range: bool = False,
+                             src_peak_nits: float = 1000.0,
+                             sdr_nits: float = 100.0, algo: str = "bt.2390",
+                             desat: float = 0.25,
+                             param: Optional[float] = None,
+                             dither: bool = True):
+    """Plain PyTorch version of the fused entry: P010 planes → uint8 BGR
+    ``[H, W, 3]`` through the plain-PQ chain, ×255, Bayer dither, round."""
+    rgb_prime = p010_rgb_prime(y_u16, uv_u16, full_range)
+    encoded = _tonemap_rgb(rgb_prime, src_peak_nits, sdr_nits, algo, desat,
+                           param)
+    return _quantize_bgr(encoded * 255.0, dither)
 
+
+# --- constants of a launch, on the host --------------------------------------
+
+_F32 = np.float32
+
+
+def curve_constants(algo: str, peak: float, sdr_nits: float = 100.0,
+                    param: Optional[float] = None) -> dict:
+    """The constants the curve ``algo`` computes for source/SDR peak ratio
+    ``peak``, from the helpers the torch curves call (``kernels/tonemap.py``,
+    on CPU float32 scalars), as numpy float32, plus the PQ scale
+    ``10000/sdr_nits`` and its inverse. The CUDA kernel takes them by value
+    and computes none of them."""
+    fn = TONEMAPPERS.get(algo, tm_bt2390)
+    k = {"peak_c": torch.clamp(_f32(peak), min=1.0 + 1e-6),
+         "lin_scale": PQ_PEAK_NITS / sdr_nits,
+         "inv_lin_scale": sdr_nits / PQ_PEAK_NITS}
+    if fn is tm_reinhard:
+        k["reinhard_gain"] = reinhard_gain(peak)
+    elif fn is tm_mobius:
+        k.update(zip(("mob_j", "mob_a", "mob_b", "mob_scale"),
+                     mobius_coeffs(peak, 0.3 if param is None else param)))
+    elif fn is tm_hable:
+        k["hable_norm"] = hable_norm(peak)
+    elif fn is tm_bt2390:
+        k.update(zip(("peak_c", "src_max_pq", "max_lum", "ks"),
+                     bt2390_knee(peak, sdr_nits)))
+    return {name: _F32(float(v)) for name, v in k.items()}
+
+
+_PARAM_FLOATS = ("lin_scale", "inv_lin_scale", "peak_c", "reinhard_gain",
+                 "mob_j", "mob_a", "mob_b", "mob_scale", "hable_inv_norm",
+                 "src_max_pq", "inv_src_max_pq", "max_lum", "ks",
+                 "inv_knee_span", "desat", "inv_peak_m1", "y_off", "y_scale",
+                 "c_off", "c_scale")
+
+
+class _KernelParams(ctypes.Structure):
+    """``KernelParams`` of ``csrc/tonemap.cu``, field for field."""
+    _fields_ = ([("algo", ctypes.c_int32), ("dither", ctypes.c_int32)]
+                + [(name, ctypes.c_float) for name in _PARAM_FLOATS]
+                + [("gamut", ctypes.c_float * 9), ("ycc", ctypes.c_float * 9)])
+
+
+@functools.lru_cache(maxsize=64)
+def _kernel_params(algo: str, src_peak_nits: float, sdr_nits: float,
+                   desat: float, param: Optional[float],
+                   full_range: bool = False,
+                   dither: bool = False) -> _KernelParams:
+    """Everything a launch needs besides its tensors, computed once on the
+    host: the curve's constants, the reciprocals the kernel multiplies by,
+    the P010 normalisation and the two matrices."""
+    f = _F32
+    one, tiny = f(1.0), f(1e-6)
+    peak = max(1.0 + 1e-3, float(src_peak_nits) / float(sdr_nits))
+    vals = curve_constants(algo, peak, sdr_nits, param)
+    if "hable_norm" in vals:
+        vals["hable_inv_norm"] = one / np.maximum(vals["hable_norm"], tiny)
+    if "src_max_pq" in vals:
+        vals["inv_src_max_pq"] = one / vals["src_max_pq"]
+        vals["inv_knee_span"] = one / np.maximum(one - vals["ks"], tiny)
+    vals["desat"] = f(desat or 0.0)
+    vals["inv_peak_m1"] = one / np.maximum(f(peak) - one, tiny)
+    # value = (code - off) * scale (color.normalize_full / normalize_limited;
+    # chroma then takes off 0.5)
+    if full_range:
+        vals.update(y_off=0.0, c_off=0.0, y_scale=1.0 / 1023.0,
+                    c_scale=1.0 / 1023.0)
+    else:
+        vals.update(y_off=64.0, c_off=64.0, y_scale=1.0 / 876.0,
+                    c_scale=1.0 / 896.0)
+    p = _KernelParams()
+    p.algo = _ALGO_CODES[TONEMAPPERS.get(algo, tm_bt2390)]
+    p.dither = int(bool(dither))
+    for name in _PARAM_FLOATS:
+        setattr(p, name, float(f(vals.get(name, 0.0))))
+    p.gamut[:] = [float(v) for v in BT2020_TO_BT709.reshape(-1)]
+    ycc = np.linalg.inv(YCBCR_BT2020).astype(np.float32)  # as ycbcr_to_rgb
+    p.ycc[:] = [float(v) for v in ycc.reshape(-1)]
+    return p
+
+
+# --- launches ----------------------------------------------------------------
 
 class _LaunchCounter:
-    """Launches of one kernel; ``chip_smoke.py`` zeroes it before the main
+    """Launches of one kernel entry; ``chip_smoke.py`` zeroes it before a
     path and reads it after, to show the path went through the kernel."""
 
     def __init__(self):
@@ -261,27 +376,41 @@ class _LaunchCounter:
 
 
 TONEMAP_LAUNCHES = _LaunchCounter()
+HDR_TO_SDR_LAUNCHES = _LaunchCounter()
 
 
+@functools.lru_cache(maxsize=None)
 def _tonemap_lib():
     from . import build
 
     lib = build.load("tonemap")
-    fn = lib.tonemap_planes_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.POINTER(_TonemapParams),
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    params = ctypes.POINTER(_KernelParams)
+    lib.tonemap_planes_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        params, ctypes.c_void_p]
+    lib.hdr_to_sdr_bgr_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+        ctypes.c_int64, params, ctypes.c_void_p]
+    lib.tonemap_planes_launch.restype = ctypes.c_int
+    lib.hdr_to_sdr_bgr_launch.restype = ctypes.c_int
+    return lib
+
+
+def _on_host(x) -> bool:
+    return not isinstance(x, torch.Tensor) or x.device.type == "cpu"
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
 
 
 def tonemap_planes_cuda(rgb_prime_planar: torch.Tensor,
                         src_peak_nits: float = 1000.0,
                         sdr_nits: float = 100.0, algo: str = "bt.2390",
                         desat: float = 0.25, param: Optional[float] = None):
-    """Launch ``csrc/tonemap.cu`` on a CUDA ``[3, H, W]`` float32 contiguous
-    tensor, on the current stream. Raises on any other input, on a failed
-    build and on a refused launch."""
+    """Launch the planar entry of ``csrc/tonemap.cu`` on a CUDA
+    ``[3, H, W]`` float32 contiguous tensor, on the current stream. Raises
+    on any other input, on a failed build and on a refused launch."""
     x = rgb_prime_planar
     if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
         raise ValueError("tonemap_planes_cuda needs a CUDA tensor")
@@ -292,20 +421,13 @@ def tonemap_planes_cuda(rgb_prime_planar: torch.Tensor,
                          f"{tuple(x.shape)}")
     if not x.is_contiguous():
         raise ValueError("tonemap_planes_cuda needs a contiguous tensor")
-    fn = _tonemap_lib()
-    fn_curve = TONEMAPPERS.get(algo, tm_bt2390)
-    p = _TonemapParams()
-    p.algo = _ALGO_CODES[fn_curve]
-    p.peak = max(1.0 + 1e-3, float(src_peak_nits) / float(sdr_nits))
-    p.sdr_nits = float(sdr_nits)
-    p.desat = float(desat or 0.0)
-    p.param = 0.3 if param is None else float(param)
-    p.m[:] = [float(v) for v in BT2020_TO_BT709.reshape(-1)]
+    lib = _tonemap_lib()
+    p = _kernel_params(algo, src_peak_nits, sdr_nits, desat, param)
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), out.data_ptr(), x.shape[1], x.shape[2],
-                 ctypes.byref(p), stream)
+        err = lib.tonemap_planes_launch(x.data_ptr(), out.data_ptr(),
+                                        x.shape[1], x.shape[2],
+                                        ctypes.byref(p), _stream(x))
     if err != 0:
         raise RuntimeError(f"tonemap_planes kernel launch failed: "
                            f"cudaError {err}")
@@ -317,13 +439,66 @@ def tonemap_planes(rgb_prime_planar: torch.Tensor,
                    src_peak_nits: float = 1000.0, sdr_nits: float = 100.0,
                    algo: str = "bt.2390", desat: float = 0.25,
                    param: Optional[float] = None):
-    """Fused PQ→tonemap→gamut→OETF on planar R'G'B' ``[3, H, W]`` float32:
-    the CUDA kernel for a CUDA tensor, the plain version for a CPU one."""
-    if rgb_prime_planar.device.type == "cpu":
+    """PQ→tonemap→gamut→OETF on planar R'G'B' ``[3, H, W]`` float32: the
+    CUDA kernel for a CUDA tensor, the plain version for a CPU one."""
+    if _on_host(rgb_prime_planar):
         return tonemap_planes_reference(rgb_prime_planar, src_peak_nits,
                                         sdr_nits, algo, desat, param)
     return tonemap_planes_cuda(rgb_prime_planar, src_peak_nits, sdr_nits,
                                algo, desat, param)
+
+
+def _check_p010_cuda(y, uv) -> None:
+    for name, t in (("Y", y), ("CbCr", uv)):
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            raise ValueError(f"hdr_to_sdr_bgr_cuda needs CUDA tensors "
+                             f"({name} plane)")
+        if t.dtype != torch.int16:
+            raise ValueError(f"hdr_to_sdr_bgr_cuda needs int16 P010 planes "
+                             f"(plane_tensor), got {t.dtype} for {name}")
+        if not t.is_contiguous():
+            raise ValueError(f"hdr_to_sdr_bgr_cuda needs a contiguous "
+                             f"{name} plane")
+    if y.dim() != 2:
+        raise ValueError(f"hdr_to_sdr_bgr_cuda needs Y as [H, W], got "
+                         f"{tuple(y.shape)}")
+    h, w = y.shape
+    if h == 0 or w == 0 or h % 2 or w % 2:
+        raise ValueError(f"hdr_to_sdr_bgr_cuda needs an even, non-empty "
+                         f"height and width (4:2:0), got {h}x{w}")
+    if tuple(uv.shape) != (h // 2, w // 2, 2):
+        raise ValueError(f"hdr_to_sdr_bgr_cuda needs CbCr as [H/2, W/2, 2] "
+                         f"= {[h // 2, w // 2, 2]}, got {list(uv.shape)}")
+    if uv.device != y.device:
+        raise ValueError("hdr_to_sdr_bgr_cuda needs both planes on one "
+                         "device")
+
+
+def hdr_to_sdr_bgr_cuda(y_u16: torch.Tensor, uv_u16: torch.Tensor,
+                        full_range: bool = False,
+                        src_peak_nits: float = 1000.0,
+                        sdr_nits: float = 100.0, algo: str = "bt.2390",
+                        desat: float = 0.25, param: Optional[float] = None,
+                        dither: bool = True) -> torch.Tensor:
+    """Launch the fused entry of ``csrc/tonemap.cu``: CUDA int16 P010 planes
+    (:func:`plane_tensor`) → uint8 BGR ``[H, W, 3]``, one kernel and no
+    other device work. Raises on any other input, on a failed build and on
+    a refused launch."""
+    _check_p010_cuda(y_u16, uv_u16)
+    lib = _tonemap_lib()
+    p = _kernel_params(algo, src_peak_nits, sdr_nits, desat, param,
+                       bool(full_range), bool(dither))
+    h, w = y_u16.shape
+    out = torch.empty((h, w, 3), dtype=torch.uint8, device=y_u16.device)
+    with torch.cuda.device(y_u16.device):
+        err = lib.hdr_to_sdr_bgr_launch(y_u16.data_ptr(), uv_u16.data_ptr(),
+                                        out.data_ptr(), h, w,
+                                        ctypes.byref(p), _stream(y_u16))
+    if err != 0:
+        raise RuntimeError(f"hdr_to_sdr_bgr kernel launch failed: "
+                           f"cudaError {err}")
+    HDR_TO_SDR_LAUNCHES.add()
+    return out
 
 
 def hdr_to_sdr_bgr(y_u16, uv_u16, full_range: bool = False,
@@ -332,15 +507,13 @@ def hdr_to_sdr_bgr(y_u16, uv_u16, full_range: bool = False,
                    desat: float = 0.25, param: Optional[float] = None,
                    dither: bool = True):
     """P010 planes → SDR BGR uint8 for the PLAIN tone-map configuration (no
-    peak-detect/contrast-recovery/gamut-map) through :func:`tonemap_planes`;
-    HLG sources take the general chain."""
+    peak-detect/contrast-recovery/gamut-map): one launch of the fused kernel
+    for CUDA planes, the plain version for host ones; HLG sources take the
+    general chain."""
     if transfer != "pq":
         return p010_to_sdr_bgr(y_u16, uv_u16, full_range, transfer,
                                src_peak_nits, sdr_nits, algo, desat, param,
                                dither)
-    y, cb, cr = p010_unpack(y_u16, uv_u16, full_range)
-    rgb_prime = torch.clamp(ycbcr_to_rgb(y, cb, cr, YCBCR_BT2020), 0.0, 1.0)
-    planar = rgb_prime.permute(2, 0, 1).contiguous()
-    encoded = tonemap_planes(planar, src_peak_nits, sdr_nits, algo, desat,
-                             param)
-    return _quantize_bgr(encoded.permute(1, 2, 0) * 255.0, dither)
+    fn = hdr_to_sdr_bgr_reference if _on_host(y_u16) else hdr_to_sdr_bgr_cuda
+    return fn(y_u16, uv_u16, full_range, src_peak_nits, sdr_nits, algo,
+              desat, param, dither)

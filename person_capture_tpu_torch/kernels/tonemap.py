@@ -17,20 +17,36 @@ def tm_clip(x, peak):
     return torch.clamp(x, 0.0, 1.0)
 
 
+# Each curve's per-call constants come from one helper, so the CUDA
+# kernel's wrapper (kernels/hdr.curve_constants) can be held to exactly what
+# the curves compute.
+
+def reinhard_gain(peak, contrast: float = 0.5):
+    offset = (1.0 - contrast) / contrast
+    return (peak + offset) / peak
+
+
 def tm_reinhard(x, peak, contrast: float = 0.5):
     offset = (1.0 - contrast) / contrast
-    gain = (peak + offset) / peak
+    gain = reinhard_gain(peak, contrast)
     return torch.clamp(x * gain / (x + offset), 0.0, 1.0)
+
+
+def mobius_coeffs(peak, param: float = 0.3, like=None):
+    """Knee ``j`` and the coefficients ``a``, ``b``, ``scale`` of the Möbius
+    roll-off ``scale * (x + a) / (x + b)``, float32."""
+    j = _f32(param, like)
+    peak = torch.clamp(_f32(peak, like), min=1.0 + 1e-6)
+    a = -j * j * (peak - 1.0) / torch.clamp(j * j - 2.0 * j + peak, min=1e-6)
+    b = (j * j - 2.0 * j * peak + peak) / torch.clamp(peak - 1.0, min=1e-6)
+    return j, a, b, (b * b + 2.0 * b * j + j * j) / (b - a)
 
 
 def tm_mobius(x, peak, param: float = 0.3):
     """Mobius: linear below the knee ``param``, hyperbolic roll-off above —
     matches libplacebo's formulation."""
-    j = _f32(param, x)
-    peak = torch.clamp(_f32(peak, x), min=1.0 + 1e-6)
-    a = -j * j * (peak - 1.0) / torch.clamp(j * j - 2.0 * j + peak, min=1e-6)
-    b = (j * j - 2.0 * j * peak + peak) / torch.clamp(peak - 1.0, min=1e-6)
-    mapped = (b * b + 2.0 * b * j + j * j) / (b - a) * (x + a) / (x + b)
+    j, a, b, scale = mobius_coeffs(peak, param, x)
+    mapped = scale * (x + a) / (x + b)
     return torch.clamp(torch.where(x <= j, x, mapped), 0.0, 1.0)
 
 
@@ -39,24 +55,35 @@ def _hable_partial(x):
     return ((x * (a * x + c * b) + d * e) / (x * (a * x + b) + d * f)) - e / f
 
 
+def hable_norm(peak, like=None):
+    """The Hable curve's value at the source peak, which normalizes it."""
+    return _hable_partial(_f32(peak, like))
+
+
 def tm_hable(x, peak):
     """Hable/Uncharted-2 filmic curve normalized to the source peak."""
-    norm = _hable_partial(_f32(peak, x))
+    norm = hable_norm(peak, x)
     return torch.clamp(_hable_partial(x) / torch.clamp(norm, min=1e-6),
                        0.0, 1.0)
+
+
+def bt2390_knee(peak, sdr_nits: float = 100.0, like=None):
+    """BT.2390's clamped peak, source peak in PQ (``src_max_pq``), target
+    peak relative to it (``max_lum``) and knee start ``ks``, float32."""
+    peak = torch.clamp(_f32(peak, like), min=1.0 + 1e-6)
+    src_max_pq = pq_inv_eotf(peak * sdr_nits / 10000.0)
+    max_lum = pq_inv_eotf(_f32(sdr_nits, like) / 10000.0) / src_max_pq
+    return peak, src_max_pq, max_lum, 1.5 * max_lum - 0.5
 
 
 def tm_bt2390(x, peak, sdr_nits: float = 100.0):
     """BT.2390 EETF: hermite-spline knee in normalized-PQ space (ITU-R
     BT.2390-3 §5.4). ``x`` is linear in SDR-peak units; the source peak is
     ``peak`` (ratio), target display max is 1.0 (== sdr_nits)."""
-    peak = torch.clamp(_f32(peak, x), min=1.0 + 1e-6)
-    src_max_pq = pq_inv_eotf(peak * sdr_nits / 10000.0)
+    peak, src_max_pq, max_lum, ks = bt2390_knee(peak, sdr_nits, x)
     e1 = pq_inv_eotf(torch.minimum(torch.clamp(x, min=0.0), peak)
                      * sdr_nits / 10000.0) / src_max_pq
-    max_lum = pq_inv_eotf(_f32(sdr_nits, x) / 10000.0) / src_max_pq
 
-    ks = 1.5 * max_lum - 0.5
     t = (e1 - ks) / torch.clamp(1.0 - ks, min=1e-6)
     t = torch.clamp(t, 0.0, 1.0)
     t2 = t * t

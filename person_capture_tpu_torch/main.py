@@ -264,10 +264,12 @@ def build_runtime(cfg, args, ap) -> dict:
             "person": None, "reid": None, "fullframe": fullframe_backend}
 
 
-def make_engine(cfg, runtime: dict, status=None, progress=None):
+def make_engine(cfg, runtime: dict, status=None, progress=None,
+                on_preview=None):
     """Engine over a shared :func:`build_runtime` — the per-video pieces
     (recovery ladder state, engine callbacks) are fresh; the heavy model
-    backends are shared."""
+    backends are shared. ``on_preview(img, frame_idx)`` receives preview
+    frames (tone-mapped from the P010 stream for an HDR source)."""
     from .pipeline.engine import Engine
     from .pipeline.recovery import RecoveringFaceBackend, RecoveryPolicy
 
@@ -283,7 +285,8 @@ def make_engine(cfg, runtime: dict, status=None, progress=None):
                   reid_backend=runtime["reid"],
                   fullframe_backend=runtime["fullframe"],
                   status=status or (lambda m: print(f"[pc] {m}")),
-                  progress=progress or (lambda p: None))
+                  progress=progress or (lambda p: None),
+                  on_preview=on_preview)
 
 
 def main(argv=None) -> int:

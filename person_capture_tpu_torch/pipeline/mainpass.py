@@ -239,8 +239,12 @@ def run_main_pass(reader, backend, cfg: SessionConfig, bank: RefBank,
     # drain/seek + the device tone-map render happen here. A busy pump
     # drops intermediate requests (newest wins); planes unavailable ⇒ fall
     # back to the (pre-downscaled) analysis frame. The source is DEDICATED
-    # — never the exporter's pipe, which the saver thread owns.
-    pump_state: Dict = {"req": None, "thread": None, "stop": None}
+    # — never the exporter's pipe, which the saver thread owns. Any other
+    # failure in the pump (a render error: a kernel that does not build or
+    # launch) ends the pump and is recorded in pump_state["error"]; the main
+    # pass re-raises it, so the run fails instead of showing analysis frames.
+    pump_state: Dict = {"req": None, "thread": None, "stop": None,
+                        "error": None}
     if preview_hdr_source is not None and on_preview is not None:
         import threading as _threading
 
@@ -248,7 +252,7 @@ def run_main_pass(reader, backend, cfg: SessionConfig, bank: RefBank,
         pump_stop = _threading.Event()
         pump_lock = _threading.Lock()
 
-        def _pump():
+        def _pump_loop():
             from ..hdr_preview import tonemap_preview_frame
 
             while not pump_stop.is_set():
@@ -264,20 +268,24 @@ def run_main_pass(reader, backend, cfg: SessionConfig, bank: RefBank,
                     planes = preview_hdr_source.get_planes(idx)
                 except Exception:
                     planes = None
-                img = None
+                img = fallback
                 if planes is not None:
                     p = hdr_exporter.params if hdr_exporter is not None \
                         else None
-                    try:
-                        img = tonemap_preview_frame(
-                            planes[0], planes[1],
-                            max_dim=int(cfg.preview_max_dim or 0) or 1280,
-                            sdr_nits=p.sdr_nits if p else 100.0,
-                            tonemap=p.tonemap if p else "bt.2390",
-                            full_range=p.full_range if p else False)
-                    except Exception:
-                        img = None
-                on_preview(img if img is not None else fallback, idx)
+                    img = tonemap_preview_frame(
+                        planes[0], planes[1],
+                        max_dim=int(cfg.preview_max_dim or 0) or 1280,
+                        sdr_nits=p.sdr_nits if p else 100.0,
+                        tonemap=p.tonemap if p else "bt.2390",
+                        full_range=p.full_range if p else False,
+                        device=p.device if p else cfg.device)
+                on_preview(img, idx)
+
+        def _pump():
+            try:
+                _pump_loop()
+            except BaseException as e:  # noqa: BLE001 — re-raised by the main pass
+                pump_state["error"] = e
 
         pump_state["thread"] = _threading.Thread(
             target=_pump, name="pc.hdrpreview", daemon=True)
@@ -302,6 +310,8 @@ def run_main_pass(reader, backend, cfg: SessionConfig, bank: RefBank,
                 and now - preview_state["last_t"] < 1.0 / cfg.preview_fps_cap:
             return
         preview_state["last_t"] = now
+        if pump_state["error"] is not None:
+            raise pump_state["error"]
         if pump_state["thread"] is not None:
             with pump_state["lock"]:
                 pump_state["req"] = (frame_idx, _downscaled(frame))
@@ -309,12 +319,15 @@ def run_main_pass(reader, backend, cfg: SessionConfig, bank: RefBank,
             return
         on_preview(_downscaled(frame), frame_idx)
 
-    def _stop_preview_pump() -> None:
+    def _stop_preview_pump():
+        """Stop and join the pump; returns the error that ended it, if
+        any."""
         if pump_state["thread"] is not None:
             pump_state["stop"].set()
             pump_state["evt"].set()
             pump_state["thread"].join(timeout=5)
             pump_state["thread"] = None
+        return pump_state["error"]
 
     # software pipeline (depth = cfg.tpu_pipeline_depth, default 4): later
     # batches' face programs are submitted before earlier results are
@@ -1279,11 +1292,13 @@ def run_main_pass(reader, backend, cfg: SessionConfig, bank: RefBank,
         # engine releases right after this returns: stop it on
         # EVERY exit path (a device error mid-run otherwise
         # leaves an orphaned thread racing a closed pipe)
-        _stop_preview_pump()
+        pump_error = _stop_preview_pump()
         if resize_pool is not None:
             resize_pool.shutdown(wait=False, cancel_futures=True)
         if debug_state["fh"] is not None:
             debug_state["fh"].close()
+    if pump_error is not None:
+        raise pump_error
     res.wall_s = time.perf_counter() - t0
     return res
 

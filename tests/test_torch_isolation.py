@@ -39,6 +39,10 @@ out = be.extract_batch(frames, np.ones(2, bool))
 assert out["feats"].shape == (2, 4, AF.TINY.embed_dim), out["feats"].shape
 planes = H.tonemap_planes(torch.rand(3, 8, 8))
 assert planes.shape == (3, 8, 8)
+from person_capture_tpu_torch.hdr_preview import tonemap_preview_frame
+y = np.full((8, 12), 500 << 6, np.uint16)
+uv = np.full((4, 6, 2), 512 << 6, np.uint16)
+assert tonemap_preview_frame(y, uv, device="cpu").shape == (8, 12, 3)
 
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
