@@ -34,7 +34,23 @@ non-zero without printing a result:
               the fused entry; one preview is held to the plain chain;
 6. main_path_shape — both entries against their plain versions once more
               at the tone-map shape of the first still, every configuration
-              of phase 3 for the fused entry, and the same three timings.
+              of phase 3 for the fused entry, and the same three timings;
+7. defaults — the CLI at its defaults with only ``--set
+              curate_enable=false`` (and the harness's cache and profile
+              settings): YOLOv8n person detection from the bundled weights
+              in the combined face+person program, madvr_like stills with
+              contrast recovery 0.30 (colour match, despeckle). The fixture
+              of phase 4 with a person drawn under a 48-px face (the largest
+              the bundled person weights find at det 640; at the fixture's
+              own 120 px they score under 0.1). Hits in the truth spans, one
+              valid still per hit, the combined program dispatched once per
+              main-pass batch, person boxes on most hit frames, at least one
+              crop composed around a person box; fused tone-map launches
+              (0 expected: contrast recovery routes the stills to the
+              general chain); then, in turns, the combined program against
+              the face-only program on one batch of 64 analysis frames, and
+              the madvr_like render against the ``fast`` fused render at the
+              first still's shape.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -99,14 +115,32 @@ def cuda_ms(fn, reps: int = 11, inner: int = 10, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def in_turns(fns: dict) -> dict:
+def wall_ms(fn, reps: int = 11, warmup: int = 3) -> float:
+    """Host time of one call of ``fn`` up to a device synchronise (a step
+    as its caller waits for it, host work included): the median of
+    ``reps`` calls after warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def in_turns(fns: dict, timer=cuda_ms) -> dict:
     """Times of several versions of one function, measured in turns
     (A, B, C, C, B, A): each name gets the mean of its two readings, and
     the readings themselves under ``<name>_runs``."""
     order = list(fns) + list(fns)[::-1]
     runs = {name: [] for name in fns}
     for name in order:
-        runs[name].append(cuda_ms(fns[name]))
+        runs[name].append(timer(fns[name]))
     out = {name: statistics.mean(r) for name, r in runs.items()}
     out.update({f"{name}_runs": r for name, r in runs.items()})
     return out
@@ -372,8 +406,9 @@ class _P010FromVideo:
             self._cap.release()
 
 
-def make_fixture(work: str):
-    """The verify recipe's fixture, re-coded as PQ: (video, ref, truth)."""
+def make_fixture(work: str, **body):
+    """The verify recipe's fixture, re-coded as PQ: (video, ref, truth).
+    ``body``: ``generate_video``'s ``draw_body`` and ``face_px``."""
     import cv2
     import numpy as np
 
@@ -382,11 +417,12 @@ def make_fixture(work: str):
                                                           generate_video,
                                                           write_pq_video)
 
+    os.makedirs(work, exist_ok=True)
     sdr = os.path.join(work, "sdr.mp4")
     vid = os.path.join(work, "vid.mp4")
     sv = generate_video(sdr, width=640, height=480, fps=30,
                         total_frames=150, segments=TRUTH_SEGMENTS,
-                        moving=True, seed=1)
+                        moving=True, seed=1, **body)
     write_pq_video(sdr, vid)
     ref = np.full((200, 200, 3), 60, np.uint8)
     draw_face(ref, FacePlacement(0, 0, (40, 40, 160, 160)))
@@ -395,17 +431,24 @@ def make_fixture(work: str):
     return vid, ref_path, sv.identity_spans(0)
 
 
-def cli_config(vid: str, ref_path: str, out: str):
+# the settings of phases 4 and 5 (the first slices'), and of phase 7
+SLICE_SETS = ("compose_detect_person_for_face=false", "curate_enable=false",
+              "hdr_sdr_quality=fast", "hdr_sdr_contrast_recovery=0")
+DEFAULT_SETS = ("curate_enable=false",)
+# the largest face under which the bundled person weights find a drawn
+# person at det 640 (trained on faces of 10-48 px at 256)
+DEFAULT_FACE_PX = 48
+
+
+def cli_config(vid: str, ref_path: str, out: str, sets=SLICE_SETS):
     from person_capture_tpu_torch import main as M
 
     argv = ["--video", vid, "--ref", ref_path, "--out", out, "--prescan",
-            "--set", "compose_detect_person_for_face=false",
-            "--set", "curate_enable=false",
-            "--set", "hdr_sdr_quality=fast",
-            "--set", "hdr_sdr_contrast_recovery=0",
             "--set", "prescan_cache_mode=off",
             # host-side per-stage wall times (utils/timing.StepTimer)
             "--set", "tpu_profile=true"]
+    for setting in sets:
+        argv += ["--set", setting]
     ap = M.build_parser()
     args = ap.parse_args(argv)
     return ap, args, M.build_config(args, ap)
@@ -570,12 +613,13 @@ def phase_preview(work: str, fixture):
 
 def phase_main_path_shape(rows):
     """Both entries against their plain versions once more at the tone-map
-    shape of the first still (its crop mapped to the 2560×1920 source and
-    legalized as the export does), and the fused entry's timings there."""
+    shape of the first still (its crop mapped to the 2560×1920 source,
+    legalized and padded as the export does), and the fused entry's
+    timings there."""
     import numpy as np
 
-    from person_capture_tpu_torch.hdr.stills import (crop_planes,
-                                                     scale_crop_xyxy_to_source)
+    from person_capture_tpu_torch.hdr.stills import (
+        HdrExportParams, bucketed_crop_arrays, scale_crop_xyxy_to_source)
 
     r = rows[0]
     crop = scale_crop_xyxy_to_source(
@@ -583,7 +627,8 @@ def phase_main_path_shape(rows):
         (HDR_W, HDR_H))
     y = np.zeros((HDR_H, HDR_W), np.uint16)
     uv = np.zeros((HDR_H // 2, HDR_W // 2, 2), np.uint16)
-    h, w = crop_planes(y, uv, crop)[0].shape
+    # the export pads the crop to its shape bucket before the render
+    h, w = bucketed_crop_arrays(y, uv, crop, HdrExportParams())[0].shape
     x = _planes((3, h, w), seed=2)
     errs = planar_vs_plain(x)
     err = max(errs.values())
@@ -597,6 +642,158 @@ def phase_main_path_shape(rows):
     emit(phase="main_path_shape", planar_shape=[3, h, w],
          planar_max_abs_err=err, fused=fused)
     return err, fused
+
+
+def _watch_defaults_run(face, composed: list, dispatches: list,
+                        persons: dict):
+    """Spies for phase 7: each call of the face backend's combined entry
+    (one per main-pass batch) and the frames whose person half holds a box;
+    each composed crop and whether a person box shaped it."""
+    from person_capture_tpu_torch.core import compose_profiles as CP
+
+    submit = face.submit_wire_with_person
+
+    def combined(person, frames, valid, frame_idxs=None):
+        dispatches.append(len(frames))
+        fetch = submit(person, frames, valid, frame_idxs)
+        valid = list(valid)
+
+        def fetch_and_read():
+            out_face, out_person = fetch()
+            for slot, idx in enumerate(frame_idxs):
+                if valid[slot]:
+                    persons[int(idx)] = int(out_person["mask"][slot].sum())
+            return out_face, out_person
+
+        return fetch_and_read
+
+    compose = CP.compose_dataset_crop
+
+    def composed_crop(*a, **kw):
+        composed.append(kw.get("subject_box") is not None)
+        return compose(*a, **kw)
+
+    face.submit_wire_with_person = combined
+    CP.compose_dataset_crop = composed_crop
+
+    def restore():
+        del face.submit_wire_with_person
+        CP.compose_dataset_crop = compose
+
+    return restore
+
+
+def phase_defaults(work: str) -> dict:
+    """Phase 7: the CLI defaults with curation off (see the module
+    docstring)."""
+    import copy
+
+    import cv2
+    import numpy as np
+    import torch
+
+    from person_capture_tpu_torch import main as M
+    from person_capture_tpu_torch.hdr.stills import (
+        HdrExportParams, render_sdr_crop_from_p010, scale_crop_xyxy_to_source)
+    from person_capture_tpu_torch.video.probe import color_range_full
+
+    vid, ref_path, truth = make_fixture(os.path.join(work, "defaults"),
+                                        draw_body=True,
+                                        face_px=DEFAULT_FACE_PX)
+    out = os.path.join(work, "out_defaults")
+    ap, args, cfg = cli_config(vid, ref_path, out, DEFAULT_SETS)
+    t0 = time.perf_counter()
+    runtime = M.build_runtime(cfg, args, ap)
+    face, person = runtime["inner_face"], runtime["person"]
+    require(person is not None, "the defaults built no person detector")
+    eng = M.make_engine(cfg, runtime, status=lambda m: None)
+    eng.hdr_source_factory = lambda video, w, h, fps: _P010FromVideo(video)
+    setup_s = time.perf_counter() - t0
+
+    composed, dispatches, persons = [], [], {}
+    restore = _watch_defaults_run(face, composed, dispatches, persons)
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        res = eng.run()
+    finally:
+        restore()
+    run_s = time.perf_counter() - t0
+    launches = read_launches()
+    require(res.ok, f"engine run at the defaults failed: {res.error}")
+    rows = check_stills(out, truth)
+    hits = [int(r["frame"]) for r in rows]
+    stages = eng._timer.summary()
+    batches = stages["main.submit"]["count"]
+    require(batches > 0 and len(dispatches) == batches,
+            f"{len(dispatches)} combined dispatches for {batches} main-pass "
+            f"batches")
+    share = float(np.mean([persons.get(f, 0) > 0 for f in hits]))
+    require(share >= 0.5, f"person boxes on only {share:.0%} of the hit "
+            f"frames")
+    around = sum(composed)
+    require(around >= 1, f"no crop of {len(composed)} composed around a "
+            f"person box")
+
+    # one step on 64 analysis frames: combined program against face only
+    cap = cv2.VideoCapture(vid)
+    cap.set(cv2.CAP_PROP_POS_FRAMES, TRUTH_SEGMENTS[0][0])
+    frames = np.stack([cap.read()[1] for _ in range(64)])
+    cap.release()
+    valid = np.ones(64, bool)
+    idxs = np.arange(64) + TRUTH_SEGMENTS[0][0]
+    step = in_turns({
+        "combined_ms": lambda: face.submit_wire_with_person(
+            person, frames, valid, idxs)(),
+        "face_only_ms": lambda: face.submit_batch(frames, valid, idxs)()},
+        timer=wall_ms)
+
+    # the first still: madvr_like against the fast fused render, and the
+    # madvr_like render on the card against the same render on the CPU
+    r = rows[0]
+    src = _P010FromVideo(vid)
+    y, uv = src.get_planes(int(r["frame"]))
+    src.release()
+    crop = scale_crop_xyxy_to_source(
+        [float(r[k]) for k in ("x1", "y1", "x2", "y2")], (640, 480),
+        (HDR_W, HDR_H))
+    full_range = color_range_full(vid)
+    madvr = HdrExportParams.from_cfg(cfg, "pq", full_range)
+    fast_cfg = copy.copy(cfg)
+    fast_cfg.hdr_sdr_quality = "fast"
+    fast_cfg.hdr_sdr_contrast_recovery = 0.0
+    fast = HdrExportParams.from_cfg(fast_cfg, "pq", full_range)
+    require(madvr.color_match and madvr.speckle_cleanup
+            and madvr.contrast_recovery > 0, "the defaults are not madvr_like")
+    got = render_sdr_crop_from_p010(y, uv, crop, madvr)
+    on_cpu = render_sdr_crop_from_p010(
+        y, uv, crop, HdrExportParams(**{**madvr.__dict__, "device": "cpu"}))
+    lsb, differ_share = differ(torch.from_numpy(got), torch.from_numpy(on_cpu))
+    # a one-step rounding difference of the clean tone-map (GPU against CPU
+    # pow) can become two after the colour match's LUT
+    require(lsb <= 2 and differ_share <= DIFFER_LIMIT, f"madvr_like still "
+            f"on the card vs the CPU: {lsb} LSB, {differ_share:.4%} differ")
+    renders = in_turns({
+        "madvr_like_ms": lambda: render_sdr_crop_from_p010(y, uv, crop,
+                                                           madvr),
+        "fast_ms": lambda: render_sdr_crop_from_p010(y, uv, crop, fast)},
+        timer=wall_ms)
+    emit(phase="defaults", truth_spans=truth, hits=len(hits),
+         hit_frames=hits, stills=len(rows), main_batches=batches,
+         combined_dispatches=len(dispatches),
+         person_box_share_of_hit_frames=share,
+         crops_composed=len(composed), crops_around_person_box=around,
+         launches=launches,
+         launches_note="0 expected: contrast recovery 0.30 routes the "
+                       "stills to the general torch chain, as in the JAX "
+                       "package",
+         setup_seconds=setup_s, seconds=run_s,
+         source_frames_per_s=150 / run_s, prescan_spans=res.spans,
+         stages=stages, step_batch=64, step=step,
+         still_shape=list(got.shape), still=renders,
+         madvr_card_vs_cpu_max_lsb=lsb,
+         madvr_card_vs_cpu_differing_share=differ_share)
+    return launches
 
 
 def main() -> int:
@@ -618,12 +815,14 @@ def main() -> int:
                                      dir=scratch) as work:
         rows, launches, fixture = phase_pipeline(work)
         phase_preview(work, fixture)
-    planar_err, still = phase_main_path_shape(rows)
+        planar_err, still = phase_main_path_shape(rows)
+        defaults_launches = phase_defaults(work)
     source = "person_capture_tpu_torch/csrc/tonemap.cu"
     replaces = "person_capture_tpu/kernels/hdr.py:217"
     print(json.dumps({"kernels": [{
         "name": "hdr_to_sdr_bgr", "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches["hdr_to_sdr_bgr"],
+        "launches_defaults": defaults_launches["hdr_to_sdr_bgr"],
         "max_abs_err": max(fused["max_lsb"], still["max_lsb"]),
         "max_abs_err_unit": "8-bit steps",
         "max_differing_share": max(fused["max_differing_share"],
@@ -639,6 +838,7 @@ def main() -> int:
     }, {
         "name": "tonemap_planes", "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches["tonemap_planes"],
+        "launches_defaults": defaults_launches["tonemap_planes"],
         "max_abs_err": max(planar["max_abs_err"], planar_err),
         "ms": planar["ms"], "plain_ms": planar["plain_ms"],
         "bound_ms": planar["bound_ms"], "bound_by": planar["bound_by"],

@@ -6,13 +6,15 @@ the caller asks for the CPU.
 
 Layering:
   core/      host geometry, scoring, bank (copied)
-  models/    SCRFD and ArcFace iResNet as ``nn.Module``s, flax→torch bridge
+  models/    SCRFD, ArcFace iResNet and YOLOv8 as ``nn.Module``s,
+             flax→torch bridge
   ops/       letterbox, NMS, 5-pt alignment warp, chip quality (torch ops)
-  kernels/   HDR tone-map family; ``csrc/tonemap.cu`` is the hand-written
-             kernel, built at first use by ``kernels/build.py``
+  kernels/   HDR tone-map family, still colour match and cleanup;
+             ``csrc/tonemap.cu`` is the hand-written kernel, built at first
+             use by ``kernels/build.py``
   video/     host-side decode/probe/keyframe index (copied)
   pipeline/  pre-scan, main pass, saver, engine (copied) and the torch
-             face backend
+             face and person backends
   hdr/       full-resolution HDR→SDR still export
 """
 

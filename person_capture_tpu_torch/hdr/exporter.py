@@ -1,7 +1,7 @@
 """HDR still exporter: crop save-items rendered from the HDR source.
 
 Copied from ``person_capture_tpu/hdr/exporter.py``; the constructor refuses
-render stages and diagnostics the torch port does not have yet.
+the speckle diagnostics, which the torch port does not have yet.
 
 Replaces the reference's per-export ffmpeg/WIC subprocess ladder
 (gui_app.py:12867 `_save_hdr_sdr_screencap`) with: seek the HDR source for
@@ -23,8 +23,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from .stills import (HdrExportParams, check_ported,
-                     render_sdr_crop_from_p010, save_sdr_still,
+from .stills import (HdrExportParams, render_sdr_crop_from_p010,
+                     save_sdr_still,
                      scale_crop_xyxy_to_source, submit_sdr_crop_render)
 
 
@@ -251,9 +251,8 @@ class HdrStillExporter:
                  archive_timeout_sec: float = 90.0,
                  archive_pix_fmt: str = "", archive_range: str = "",
                  display_compat: bool = False):
-        # refuse up front what the torch port cannot render yet: a failure
+        # refuse up front what the torch port does not have yet: a failure
         # per still on the saver thread would only show as missing stills
-        check_ported(params)
         if diag_dir:
             raise ValueError("HDR speckle diagnostics are not ported to "
                              "torch yet; run with --set hdr_speckle_diag="

@@ -3,12 +3,10 @@
 Torch port of ``person_capture_tpu/hdr/stills.py``: the crop is legalized
 for 4:2:0 (`even_hdr_crop_xyxy` semantics), tone-mapped on the configured
 device (kernels/hdr.py; the plain PQ chain through the hand-written CUDA
-kernel), then written atomically as PNG/JPG. The JAX package pads crops to
-shape buckets so that XLA reuses compiled programs; eager torch has nothing
-to recompile, so crops render at their own size. Validation oracles
-re-implement the reference's decode-and-inspect checks. The colour-match
-and cleanup stages are not ported yet: parameters that need them raise
-``ValueError`` (:func:`check_ported`).
+kernel), optionally colour-matched to the WIC-look response of a
+statistics-reference render (kernels/colormatch.py) and cleaned up
+(kernels/cleanup.py), then written atomically as PNG/JPG. Validation
+oracles re-implement the reference's decode-and-inspect checks.
 """
 
 from __future__ import annotations
@@ -98,6 +96,12 @@ class HdrExportParams:
     contrast_recovery: float = 0.0  # hdr_sdr_contrast_recovery
     gamut: str = "clip"             # hdr_sdr_gamut_mapping
     guide_cleanup: bool = False     # hdr_wic_yuv444_guide_cleanup
+    # pad crops to multiples of this before the render and trim after, as
+    # the JAX package does (its reason: one compiled program for varying
+    # crop sizes). Edge-replicated padding only duplicates pixel values,
+    # but they enter the statistics (peak detect, LUT fit), so the port pads
+    # alike to render the same stills. 0 disables.
+    shape_bucket: int = 64
     device: str = "cuda"            # SessionConfig.device
 
     @staticmethod
@@ -160,34 +164,18 @@ class HdrExportParams:
         return p
 
 
-# post-stages whose kernels (kernels/colormatch.py, kernels/cleanup.py of
-# the JAX package) are not ported to torch yet: (params field, is-on test,
-# stage, the setting that turns it off)
-_UNPORTED_STAGES = (
-    ("color_match", bool, "colour match",
-     "hdr_sdr_quality=fast or hdr_sdr_conversion=ffmpeg"),
-    ("guide_cleanup", bool, "guide cleanup",
-     "hdr_wic_yuv444_guide_cleanup=false"),
-    ("shadow_deblob", lambda v: float(v) > 0.0, "shadow deblob",
-     "wic_shadow_deblob_strength=0"),
-    ("speckle_cleanup", bool, "despeckle",
-     "hdr_sdr_quality=fast or hdr_wic_speckle_cleanup=false"),
-)
+def _ref_subsample_step(shape_hw, ref_max_side: int) -> int:
+    """Stride k so the statistics reference renders at ≤ ref_max_side (the
+    reference's reduced-reference fast path)."""
+    if ref_max_side <= 0:
+        return 1
+    side = max(shape_hw[0], shape_hw[1])
+    k = -(-side // int(ref_max_side))
+    return max(1, int(k))
 
 
-def check_ported(params: HdrExportParams) -> None:
-    """Raise ``ValueError`` when ``params`` need a render stage the torch
-    port does not have yet, naming the stage and the setting that avoids
-    it (never a silent render without the stage)."""
-    for field, on, stage, setting in _UNPORTED_STAGES:
-        if on(getattr(params, field)):
-            raise ValueError(f"HDR still {stage} is not ported to torch yet; "
-                             f"run with --set {setting}")
-
-
-def render_crop(y_crop: np.ndarray, uv_crop: np.ndarray,
-                params: HdrExportParams) -> torch.Tensor:
-    """P010 crop planes (numpy) → uint8 BGR tensor on ``params.device``.
+def _tonemap(y, uv, params: HdrExportParams) -> torch.Tensor:
+    """The clean tone-map of P010 crop tensors → uint8 BGR.
 
     The plain PQ configuration (no contrast-recovery/gamut-map — e.g. the
     "fast" quality preset) goes through the fused tone-map (the
@@ -197,12 +185,9 @@ def render_crop(y_crop: np.ndarray, uv_crop: np.ndarray,
     takes the kernel too (the JAX package sends it through its jnp chain,
     with the same result). Richer configurations take the general torch
     chain."""
-    check_ported(params)
     from ..kernels.hdr import (detect_peak_nits, hdr_to_sdr_bgr,
-                               p010_rgb_prime, p010_to_sdr_bgr, plane_tensor)
+                               p010_rgb_prime, p010_to_sdr_bgr)
 
-    y = plane_tensor(y_crop, params.device)
-    uv = plane_tensor(uv_crop, params.device)
     clean_full = params.full_range or params.clean_range == "full"
     plain = (params.transfer == "pq" and params.gamut == "clip"
              and float(params.contrast_recovery) == 0.0)
@@ -224,21 +209,67 @@ def render_crop(y_crop: np.ndarray, uv_crop: np.ndarray,
         contrast_recovery=params.contrast_recovery, gamut=params.gamut)
 
 
-def _start_download(out: torch.Tensor):
-    """Start the device→host copy of a render and return ``fetch() ->
-    np.ndarray`` that waits for it alone."""
-    if out.device.type != "cuda":
-        return out.numpy
-    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-    host.copy_(out, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
+def _reference_render(y, uv, params: HdrExportParams) -> torch.Tensor:
+    """The WIC-look statistics reference: a genuinely different decode chain
+    (full-range expansion, nearest 420-style chroma, pure-2.2 gamma, no
+    dither) rendered from every k-th pixel of the crop."""
+    from ..kernels.hdr import p010_to_sdr_bgr
 
-    def fetch() -> np.ndarray:
-        done.synchronize()
-        return host.numpy()
+    k = _ref_subsample_step(tuple(y.shape), params.ref_max_side)
+    return p010_to_sdr_bgr(
+        y[::k, ::k], uv[::k, ::k], full_range=True,
+        transfer=params.transfer, src_peak_nits=params.src_peak_nits,
+        sdr_nits=params.sdr_nits, algo=params.tonemap, desat=params.desat,
+        param=params.tm_param, dither=False, peak_detect=params.peak_detect,
+        chroma_upsample="nearest", oetf="gamma22",
+        contrast_recovery=params.contrast_recovery, gamut=params.gamut)
 
-    return fetch
+
+def _post_stages(bgr, ref, params: HdrExportParams) -> torch.Tensor:
+    """The render's post-stages, in the JAX chain's order: colour match
+    against ``ref`` (when given) → guide cleanup → shadow deblob →
+    despeckle."""
+    from ..kernels.cleanup import (despeckle_bgr, guide_cleanup_bgr,
+                                   shadow_deblob_bgr)
+    from ..kernels.colormatch import color_match_bgr
+
+    if ref is not None:
+        bgr = color_match_bgr(
+            bgr, ref, strength=params.color_match_strength,
+            luma_strength=params.color_match_luma,
+            chroma_strength=params.color_match_chroma,
+            shadow_luma_protect=params.shadow_luma_protect,
+            shadow_chroma_protect=params.shadow_chroma_protect,
+            lowfreq=params.lowfreq)
+        if params.guide_cleanup:
+            bgr = guide_cleanup_bgr(bgr, ref)
+    if params.shadow_deblob > 0.0:
+        bgr = shadow_deblob_bgr(bgr, strength=params.shadow_deblob)
+    if params.speckle_cleanup:
+        bgr, _ = despeckle_bgr(bgr)
+    return bgr
+
+
+def render_crop(y_crop: np.ndarray, uv_crop: np.ndarray,
+                params: HdrExportParams,
+                reference_bgr: Optional[np.ndarray] = None) -> torch.Tensor:
+    """P010 crop planes (numpy) → uint8 BGR tensor on ``params.device``:
+    the clean tone-map (:func:`_tonemap`), then, with colour match on, the
+    match against the statistics reference — ``reference_bgr`` when given,
+    else :func:`_reference_render` of the same crop — and the cleanup
+    stages (:func:`_post_stages`)."""
+    from ..kernels.hdr import plane_tensor
+
+    y = plane_tensor(y_crop, params.device)
+    uv = plane_tensor(uv_crop, params.device)
+    ref = None
+    if params.color_match:
+        if reference_bgr is not None:
+            ref = torch.from_numpy(np.ascontiguousarray(reference_bgr)).to(
+                params.device)
+        else:
+            ref = _reference_render(y, uv, params)
+    return _post_stages(_tonemap(y, uv, params), ref, params)
 
 
 def crop_planes(y_plane: np.ndarray, uv_plane: np.ndarray, crop_xyxy):
@@ -252,8 +283,34 @@ def crop_planes(y_plane: np.ndarray, uv_plane: np.ndarray, crop_xyxy):
     return y_crop, uv_crop
 
 
+def bucketed_crop_arrays(y_plane: np.ndarray, uv_plane: np.ndarray,
+                         crop_xyxy, params: HdrExportParams):
+    """:func:`crop_planes`, edge-padded to a multiple of
+    ``params.shape_bucket`` when that adds at most a quarter of the pixels,
+    as the JAX package prepares every render (there, so that XLA reuses one
+    compiled program; here, because the replicated pixels enter the
+    render's statistics — peak detect, LUT fit, coarse grids — and the
+    stills must match). Returns ``(y_crop, uv_crop, trim)``, ``trim`` the
+    pre-pad (h, w) to slice the render back to, or None."""
+    y_crop, uv_crop = crop_planes(y_plane, uv_plane, crop_xyxy)
+    ch, cw = y_crop.shape
+    bucket = int(params.shape_bucket or 0)
+    trim = None
+    if bucket > 1 and (ch % bucket or cw % bucket):
+        ph = (-ch) % bucket
+        pw = (-cw) % bucket
+        pad_frac = ((ch + ph) * (cw + pw) - ch * cw) / float(ch * cw)
+        if pad_frac <= 0.25:
+            y_crop = np.pad(y_crop, ((0, ph), (0, pw)), mode="edge")
+            uv_crop = np.pad(uv_crop, ((0, ph // 2), (0, pw // 2), (0, 0)),
+                             mode="edge")
+            trim = (ch, cw)
+    return y_crop, uv_crop, trim
+
+
 def submit_sdr_crop_render(y_plane: np.ndarray, uv_plane: np.ndarray,
-                           crop_xyxy, params: HdrExportParams):
+                           crop_xyxy, params: HdrExportParams,
+                           reference_bgr: Optional[np.ndarray] = None):
     """Dispatch the device render for a P010 crop; return a zero-arg
     ``fetch() -> np.ndarray`` that blocks on the result.
 
@@ -264,16 +321,42 @@ def submit_sdr_crop_render(y_plane: np.ndarray, uv_plane: np.ndarray,
     Cropping happens *before* the render (as the reference's PNG path
     crops in HDR space) so tone-map statistics see only the exported
     region.
+
+    ``reference_bgr``: optional externally-rendered statistics reference for
+    the colour match (e.g. a reduced-resolution render); when None and
+    colour match is on, the render makes its own reference.
     """
-    return _start_download(render_crop(*crop_planes(y_plane, uv_plane,
-                                                    crop_xyxy), params))
+    from ..pipeline.backends import start_download
+
+    y_crop, uv_crop, trim = bucketed_crop_arrays(y_plane, uv_plane,
+                                                 crop_xyxy, params)
+    ref = None
+    if reference_bgr is not None and params.color_match:
+        ref = np.asarray(reference_bgr)
+        if trim is not None:
+            # pad the reference by the same FRACTION of its own size as the
+            # crop was padded, so the spatial post-stages (lowfreq residual
+            # pooling, guide-cleanup resize) keep both inputs on the same
+            # normalized grid
+            ch, cw = trim
+            rh, rw = ref.shape[:2]
+            rph = int(round(rh * (y_crop.shape[0] - ch) / float(ch)))
+            rpw = int(round(rw * (y_crop.shape[1] - cw) / float(cw)))
+            if rph or rpw:
+                ref = np.pad(ref, ((0, rph), (0, rpw), (0, 0)), mode="edge")
+    download = start_download(render_crop(y_crop, uv_crop, params, ref))
+    if trim is None:
+        return download
+    return lambda: download()[: trim[0], : trim[1]]
 
 
 def render_sdr_crop_from_p010(y_plane: np.ndarray, uv_plane: np.ndarray,
-                              crop_xyxy, params: HdrExportParams
+                              crop_xyxy, params: HdrExportParams,
+                              reference_bgr: Optional[np.ndarray] = None
                               ) -> np.ndarray:
     """Blocking crop-render (see :func:`submit_sdr_crop_render`)."""
-    return submit_sdr_crop_render(y_plane, uv_plane, crop_xyxy, params)()
+    return submit_sdr_crop_render(y_plane, uv_plane, crop_xyxy, params,
+                                  reference_bgr)()
 
 
 def save_sdr_still(bgr: np.ndarray, out_path: str) -> Tuple[bool, str]:

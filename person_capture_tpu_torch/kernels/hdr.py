@@ -184,18 +184,25 @@ def detect_peak_nits(rgb_prime_pq, floor_nits: float = 203.0,
                      quantile: float = 0.999):
     """Scene peak luminance (nits) from PQ-coded R'G'B': a high quantile of
     the per-pixel max channel, floored at HDR reference white."""
-    flat = rgb_prime_pq.amax(dim=-1).reshape(-1)
-    # torch.quantile refuses very large inputs; kthvalue-based linear
-    # interpolation gives the same value as jnp.quantile's default
-    n = flat.numel()
-    pos = quantile * (n - 1)
-    lo = int(np.floor(pos))
-    hi = min(lo + 1, n - 1)
-    srt = torch.sort(flat).values
-    frac = pos - lo
-    peak_code = srt[lo] + (srt[hi] - srt[lo]) * frac
+    peak_code = quantile_linear(rgb_prime_pq.amax(dim=-1), quantile)
     nits = pq_eotf(peak_code) * PQ_PEAK_NITS
     return torch.clamp(nits, min=floor_nits)
+
+
+def quantile_linear(x, q):
+    """``jnp.quantile(x, q)`` over all of ``x`` (its default linear
+    estimator, computed as it does in float32): ``q`` a float or a 1-D
+    tensor of quantiles. Sort + interpolation, since ``torch.quantile``
+    refuses inputs over 2²⁴ elements."""
+    v = torch.sort(x.reshape(-1)).values
+    n = v.shape[0]
+    q = torch.as_tensor(q, dtype=torch.float32, device=v.device)
+    pos = q * float(np.float32(n) - np.float32(1))
+    low = torch.floor(pos)
+    high_w = pos - low
+    lo = torch.clamp(low, 0, n - 1).long()
+    hi = torch.clamp(torch.ceil(pos), 0, n - 1).long()
+    return v[lo] * (1.0 - high_w) + v[hi] * high_w
 
 
 def p010_rgb_prime(y_u16, uv_u16, full_range: bool = False,

@@ -2,14 +2,13 @@
 driving the PyTorch/CUDA pipeline:
 
     python -m person_capture_tpu_torch.main --video V --ref R --out OUT \
-        --prescan --set compose_detect_person_for_face=false \
-        --set curate_enable=false --set hdr_sdr_quality=fast \
-        --set hdr_sdr_contrast_recovery=0
+        --set curate_enable=false
 
 Runs on the CUDA device unless ``--device cpu`` is given. Branches the port
-does not carry yet (mesh/multi-host, ONNX weights, YOLO-face, CLIP-face,
-YOLO person, ReID, curation) raise ``ValueError`` in :func:`build_runtime`
-naming the setting to change; nothing is silently left out.
+does not carry yet (mesh/multi-host, ONNX weights, ultralytics ``.pt`` YOLO
+checkpoints, YOLO-face, CLIP-face, the ReID match modes, curation) raise
+``ValueError`` in :func:`build_runtime` naming the setting to change;
+nothing is silently left out.
 """
 
 from __future__ import annotations
@@ -192,14 +191,40 @@ def check_ported(cfg, args) -> None:
     if not cfg.use_arcface:
         raise _unported("the CLIP-face embedder",
                         "run with --set use_arcface=true")
-    if cfg.match_mode != "face_only" or not cfg.skip_yolo_when_faceonly:
-        raise _unported("YOLO person detection and ReID",
+    if cfg.match_mode != "face_only":
+        raise _unported(f"ReID (--match-mode {cfg.match_mode})",
                         "run with --match-mode face_only")
-    if cfg.compose_detect_person_for_face:
-        raise _unported("YOLO person detection",
-                        "run with --set compose_detect_person_for_face=false")
     if cfg.curate_enable:
         raise _unported("curation", "run with --set curate_enable=false")
+
+
+def resolve_yolo(yolo_model: str):
+    """Resolve the person-detector spec to (yolo_cfg, weights).
+
+    Bundled synthetic-trained weights for known names; a user-supplied flax
+    ``.npz`` checkpoint loads through the zoo. An ultralytics ``.pt`` file
+    raises ``ValueError`` (its loader is not ported); a spec that resolves
+    to nothing raises ``FileNotFoundError`` — never a silent random-init
+    run."""
+    from .models import yolov8 as YV
+    from .models.zoo import BUNDLED, resolve_weights
+
+    yolo_spec = str(yolo_model or "yolov8n.pt")
+    yolo_name = (os.path.splitext(os.path.basename(yolo_spec))[0]
+                 .replace("-", "_")) or "yolov8n"
+    yolo_cfg = YV.CONFIGS.get(yolo_name, YV.YOLOV8N)
+    if os.path.isfile(yolo_spec):
+        if yolo_spec.lower().endswith((".pt", ".pth")):
+            raise _unported(f"the ultralytics checkpoint loader "
+                            f"(--yolo {yolo_spec!r})",
+                            "pass a flax .npz checkpoint or a bundled "
+                            "name such as yolov8n to --yolo")
+        return yolo_cfg, resolve_weights(yolo_spec, yolo_name)
+    if yolo_name not in BUNDLED:
+        raise FileNotFoundError(
+            f"--yolo {yolo_spec!r}: not a file and no bundled weights "
+            f"for {yolo_name!r}")
+    return yolo_cfg, resolve_weights("auto", yolo_name)
 
 
 def build_runtime(cfg, args, ap) -> dict:
@@ -211,7 +236,8 @@ def build_runtime(cfg, args, ap) -> dict:
     from .models import arcface as AF
     from .models import scrfd as SD
     from .models.zoo import bundled_weights_path, resolve_weights
-    from .pipeline.backends import LazyBackend, ScrfdArcFaceBackend
+    from .pipeline.backends import (LazyBackend, ScrfdArcFaceBackend,
+                                    YoloPersonBackend)
 
     check_ported(cfg, args)
     device = resolve_device(cfg)
@@ -260,8 +286,22 @@ def build_runtime(cfg, args, ap) -> dict:
             and int(cfg.face_fullframe_imgsz) > int(args.det_size)):
         fullframe_backend = LazyBackend(
             lambda: face_backend(int(cfg.face_fullframe_imgsz)))
+    # the person detector builds when the match mode needs it and for
+    # body-aware compose association (compose_detect_person_for_face,
+    # default on). Like the JAX runtime, it takes neither --det-size nor
+    # --compute-dtype: det 640 and bf16 are its own defaults
+    person_backend = None
+    if not cfg.skip_yolo_when_faceonly or cfg.compose_detect_person_for_face:
+        try:
+            yolo_cfg, yolo_w = resolve_yolo(cfg.yolo_model)
+        except FileNotFoundError as e:
+            ap.error(str(e))
+        person_backend = YoloPersonBackend(
+            cfg=yolo_cfg, conf=cfg.min_det_conf, weights=yolo_w,
+            device=device)
     return {"inner_face": backend, "face_cfg": face_cfg,
-            "person": None, "reid": None, "fullframe": fullframe_backend}
+            "person": person_backend, "reid": None,
+            "fullframe": fullframe_backend}
 
 
 def make_engine(cfg, runtime: dict, status=None, progress=None,

@@ -1,3 +1,3 @@
-"""Torch model families: SCRFD face detector and ArcFace iResNet embedder
-(``nn.Module``s, NCHW), with the bridge that loads the JAX package's flax
-checkpoints into them."""
+"""Torch model families: SCRFD face detector, ArcFace iResNet embedder and
+YOLOv8 detector (``nn.Module``s, NCHW), with the bridge that loads the JAX
+package's flax checkpoints into them."""

@@ -2,12 +2,13 @@
 
 The JAX package's weights are flax variable trees (read as numpy from the
 bundled ``.npz``; :func:`..tools.weights.load_npz_variables`). This module
-maps every leaf onto the torch modules of :mod:`.scrfd` and
-:mod:`.arcface`:
+maps every leaf onto the torch modules of :mod:`.scrfd`, :mod:`.arcface`
+and :mod:`.yolov8`:
 
   * conv kernel HWIO → OIHW; Dense kernel (in, out) → (out, in);
   * BatchNorm ``params/scale,bias`` + ``batch_stats/mean,var`` → weight,
-    bias, running_mean, running_var (eps 1e-5 lives on the modules);
+    bias, running_mean, running_var (eps lives on the modules: 1e-5 for
+    SCRFD and ArcFace, 1e-3 for YOLOv8);
   * GroupNorm ``scale,bias`` → weight, bias (``min(16, C)`` groups);
   * channelwise PReLU ``alpha``.
 
@@ -40,7 +41,7 @@ class _Leaves:
             raise KeyError(f"checkpoint has no leaf {path!r}") from None
 
     def put(self, name: str, arr: np.ndarray) -> None:
-        self.sd[name] = torch.from_numpy(np.ascontiguousarray(arr))
+        self.sd[name] = torch.from_numpy(np.array(arr))  # a writable copy
 
     def conv(self, name: str, scope: str, bias: bool = False) -> None:
         self.put(f"{name}.weight",
@@ -127,4 +128,52 @@ def load_arcface(model, variables: Mapping):
     lv.bn("bn2", "BatchNorm_1")
     lv.dense("fc", "Dense_0")
     lv.bn("features", "BatchNorm_2")
+    return lv.finish(model)
+
+
+def load_yolov8(model, variables: Mapping):
+    """Fill a :class:`..models.yolov8.YoloV8` from flax variables.
+
+    Flax names submodules per type in creation order: the backbone's and
+    neck's ``ConvSiLU_n`` (each PAN ``C2f`` is created before the strided
+    conv that feeds it), ``C2f_n``, ``SPPF_0``, then per head level box
+    ConvSiLU ×2 + ``Conv``, cls ConvSiLU ×2 + ``Conv`` and, for a pose head,
+    kps ConvSiLU ×2 + ``Conv``."""
+    lv = _Leaves(variables)
+    counts: Dict[str, int] = {}
+
+    def scope(kind: str) -> str:
+        i = counts.get(kind, 0)
+        counts[kind] = i + 1
+        return f"{kind}_{i}"
+
+    def convsilu(name: str, sc: str) -> None:
+        lv.conv(f"{name}.conv", f"{sc}/Conv_0")
+        lv.bn(f"{name}.bn", f"{sc}/BatchNorm_0")
+
+    def c2f(name: str) -> None:
+        sc = scope("C2f")
+        convsilu(f"{name}.cv1", f"{sc}/ConvSiLU_0")
+        for i in range(len(getattr(model, name).m)):
+            for j in (1, 2):
+                convsilu(f"{name}.m.{i}.cv{j}",
+                         f"{sc}/Bottleneck_{i}/ConvSiLU_{j - 1}")
+        convsilu(f"{name}.cv2", f"{sc}/ConvSiLU_1")
+
+    for name in ("stem", "down1", "down2", "down3", "down4", "bottom_down4",
+                 "bottom_down5"):
+        convsilu(name, scope("ConvSiLU"))
+    for name in ("stage1", "stage2", "stage3", "stage4", "top4", "top3",
+                 "bottom4", "bottom5"):
+        c2f(name)
+    convsilu("sppf.cv1", "SPPF_0/ConvSiLU_0")
+    convsilu("sppf.cv2", "SPPF_0/ConvSiLU_1")
+    for lvl, head in enumerate(model.heads):
+        for branch in ("box", "cls", "kps"):
+            if getattr(head, branch) is None:
+                continue
+            p = f"heads.{lvl}.{branch}"
+            convsilu(f"{p}.0", scope("ConvSiLU"))
+            convsilu(f"{p}.1", scope("ConvSiLU"))
+            lv.conv(f"{p}.2", scope("Conv"), bias=True)
     return lv.finish(model)

@@ -62,3 +62,8 @@ def normalize_scrfd(img_bgr):
 def normalize_arcface(chip_bgr):
     """ArcFace input normalization: BGR→RGB then x/127.5 - 1."""
     return chip_bgr.flip(-1).float() / 127.5 - 1.0
+
+
+def normalize_yolo(img_bgr):
+    """Ultralytics YOLO ingress: BGR→RGB, x/255."""
+    return img_bgr.flip(-1).float() / 255.0

@@ -3,7 +3,9 @@
 A backend turns a batch of decoded frames into fixed-shape face detections +
 identity embeddings. :class:`ScrfdArcFaceBackend` is the counterpart of the
 JAX package's fused program (I420 wire → BGR → letterbox → SCRFD → 5-pt
-align → ArcFace → quality), run as torch ops on the configured device.
+align → ArcFace → quality), run as torch ops on the configured device, and
+of its combined face+person step with :class:`YoloPersonBackend` (one
+upload, one chain of ops, one packed download per batch).
 
 Outputs (host numpy, fixed shapes):
   boxes ``[B, F, 4]`` xyxy in *reader frame coords*, kps ``[B, F, 5, 2]``,
@@ -195,18 +197,23 @@ class ScrfdArcFaceBackend:
         self.arcface_model = arc.to(device=self.device, dtype=self.dtype)
 
     # ---- device program -------------------------------------------------
-    @torch.inference_mode()
+    def _convert(self, wire: torch.Tensor) -> torch.Tensor:
+        """Wire format → device-resident float32 BGR."""
+        if self.transfer_format == "i420":
+            return i420_to_bgr(wire)
+        return wire.float()
+
     def _fused(self, wire: torch.Tensor) -> torch.Tensor:
+        return self._fused_bgr(self._convert(wire))
+
+    @torch.inference_mode()
+    def _fused_bgr(self, frames: torch.Tensor) -> torch.Tensor:
         from ..models.arcface import encode_chips
         from ..models.scrfd import detect_faces
         from ..ops.align import align_chips
         from ..ops.preprocess import letterbox_topleft
         from ..ops.quality import chip_quality
 
-        if self.transfer_format == "i420":
-            frames = i420_to_bgr(wire)
-        else:
-            frames = wire.float()
         b = frames.shape[0]
         padded, scale = letterbox_topleft(frames, self.det_size)
         scales = torch.full((b,), scale, dtype=torch.float32,
@@ -279,22 +286,174 @@ class ScrfdArcFaceBackend:
         the host dict. On CUDA the packed result is copied into pinned host
         memory without blocking; the fetch waits on that copy alone."""
         wire = self._prepare_transfer(np.asarray(frames))
-        packed_dev = self._fused(self._upload(wire))
+        return self._fetcher(self._fused(self._upload(wire)), valid)
+
+    def _fetcher(self, packed_dev: torch.Tensor, valid):
         valid = np.asarray(valid).copy()
-        if self.device.type != "cuda":
-            packed = packed_dev.numpy()
-            return lambda: self._unpack(packed, valid)
-        host = torch.empty(packed_dev.shape, dtype=packed_dev.dtype,
-                           pin_memory=True)
-        host.copy_(packed_dev, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-
-        def fetch():
-            done.synchronize()
-            return self._unpack(host.numpy(), valid)
-
-        return fetch
+        download = start_download(packed_dev)
+        return lambda: self._unpack(download(), valid)
 
     def extract_batch(self, frames, valid, frame_idxs=None):
         return self.submit_batch(frames, valid, frame_idxs)()
+
+    # ---- shared-upload path (one transfer feeds face + person programs) --
+    def upload_shared(self, frames: np.ndarray) -> torch.Tensor:
+        """Host frames → device-resident float32 BGR via the wire format;
+        the result feeds both :meth:`submit_device` and
+        :meth:`YoloPersonBackend.submit_device`."""
+        wire = self._prepare_transfer(np.asarray(frames))
+        return self._convert(self._upload(wire))
+
+    def submit_device(self, bgr_dev, valid, frame_idxs=None):
+        return self._fetcher(self._fused_bgr(bgr_dev), valid)
+
+    # ---- combined face+person step: ONE chain of ops, ONE download ------
+    def _combined_with(self, person):
+        """The face chain AND the person detector on one device-resident
+        BGR batch, everything packed into one ``[B, F·(17+D) + P·6]``
+        array."""
+        @torch.inference_mode()
+        def combo(bgr):
+            f = self._fused_bgr(bgr)                  # [B, F, 17+D]
+            p = person._fused(bgr, person.conf)       # dict of [B, P, ...]
+            b = f.shape[0]
+            pp = torch.cat([p["boxes"], p["scores"][..., None],
+                            p["mask"].float()[..., None]], dim=-1)
+            return torch.cat([f.reshape(b, -1), pp.reshape(b, -1)], dim=1)
+
+        return combo
+
+    def submit_device_with_person(self, person, bgr_dev, valid,
+                                  frame_idxs=None):
+        """Shared-upload + combined program: returns ONE fetch producing
+        ``(face_out, person_out)`` from a single packed download."""
+        return self._combo_fetch(self._combined_with(person)(bgr_dev), valid,
+                                 person)
+
+    def _combined_wire_with(self, person):
+        """The combined program from the WIRE format (uint8 i420/bgr):
+        convert → face chain → person detector → packed output."""
+        combo = self._combined_with(person)
+        return lambda wire: combo(self._convert(wire))
+
+    def submit_wire_with_person(self, person, frames, valid,
+                                frame_idxs=None):
+        """Host frames → wire format → ONE upload, one chain of ops running
+        convert + face + person; returns one fetch producing
+        ``(face_out, person_out)`` from a single packed download."""
+        wire = self._prepare_transfer(np.asarray(frames))
+        packed_dev = self._combined_wire_with(person)(self._upload(wire))
+        return self._combo_fetch(packed_dev, valid, person)
+
+    def _combo_fetch(self, packed_dev, valid, person):
+        valid = np.asarray(valid).copy()
+        face_cols = 17 + self.embed_dim
+        face_w = self.max_faces * face_cols
+        p_det = int(person.max_det)
+        download = start_download(packed_dev)
+
+        def fetch():
+            host = download()
+            b = host.shape[0]
+            face = host[:, :face_w].reshape(b, self.max_faces, face_cols)
+            out = self._unpack(face, valid)
+            pp = host[:, face_w:].reshape(b, p_det, 6)
+            person_out = {
+                "boxes": pp[..., :4],
+                "scores": pp[..., 4],
+                "mask": (pp[..., 5] > 0.5) & valid[:, None],
+            }
+            return out, person_out
+
+        return fetch
+
+
+def start_download(out: torch.Tensor):
+    """Start the device→host copy of ``out`` and return ``fetch() ->
+    np.ndarray``. On CUDA the copy goes into pinned host memory without
+    blocking, and the fetch waits on that copy alone."""
+    if out.device.type != "cuda":
+        return out.numpy
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    host.copy_(out, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def fetch() -> np.ndarray:
+        done.synchronize()
+        return host.numpy()
+
+    return fetch
+
+
+class YoloPersonBackend:
+    """YOLOv8 person detection as one chain of torch ops per batch:
+    ``[B, H, W, 3]`` uint8 → letterbox → YOLOv8 → DFL decode → per-level
+    top-k → NMS into ``max_det`` slots → person boxes/scores/mask in reader
+    frame coords, clamped to the frame.
+
+    Same constructor and ``detect_batch`` / ``submit_batch`` /
+    ``submit_device`` contract as the JAX package's ``YoloPersonBackend``
+    (det size 640 and bf16 unless given); ``_fused(frames_bgr_float, conf)``
+    is the program the face backend's combined step runs.
+    """
+
+    def __init__(self, cfg=None, det_size: int = 640, conf: float = 0.35,
+                 max_det: int = 16, dtype=None, seed: int = 0, weights=None,
+                 device=None):
+        from ..models import yolov8 as Y
+        from ..models.bridge import load_yolov8
+
+        cfg = cfg or Y.YOLOV8N
+        Y.check_det_size(cfg, int(det_size))
+        self.device = torch.device(device or "cuda")
+        self.dtype = dtype or torch.bfloat16
+        self.det_size = int(det_size)
+        self.conf = float(conf)
+        self.max_det = int(max_det)
+        model = Y.YoloV8(cfg).eval()
+        if weights is None:
+            _random_init(model, seed)
+        else:
+            load_yolov8(model, weights)
+        self.model = model.to(device=self.device, dtype=self.dtype)
+
+    @torch.inference_mode()
+    def _fused(self, frames: torch.Tensor, conf: float):
+        from ..models.yolov8 import detect_persons
+        from ..ops.preprocess import letterbox_topleft
+
+        frames = frames.float()
+        padded, scale = letterbox_topleft(frames, self.det_size)
+        scales = torch.full((frames.shape[0],), scale, dtype=torch.float32,
+                            device=frames.device)
+        return detect_persons(self.model, padded, scales, conf, self.max_det,
+                              clip_hw=tuple(frames.shape[1:3]))
+
+    def detect_batch(self, frames, valid, frame_idxs=None):
+        return self.submit_batch(frames, valid, frame_idxs)()
+
+    def submit_batch(self, frames, valid, frame_idxs=None):
+        """Enqueue the person program on the raw BGR frames and return a
+        fetcher."""
+        t = torch.from_numpy(np.ascontiguousarray(frames))
+        if self.device.type == "cuda":
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return self._submit(t, valid)
+
+    def submit_device(self, bgr_dev, valid, frame_idxs=None):
+        """Shared-upload variant: consume the device-resident float32 BGR
+        of :meth:`ScrfdArcFaceBackend.upload_shared`."""
+        return self._submit(bgr_dev, valid)
+
+    def _submit(self, frames_dev, valid):
+        out = self._fused(frames_dev, self.conf)
+        downloads = {k: start_download(v) for k, v in out.items()}
+        valid = np.asarray(valid).copy()
+
+        def fetch():
+            host = {k: d() for k, d in downloads.items()}
+            host["mask"] = host["mask"] & valid[:, None]
+            return host
+
+        return fetch

@@ -3,8 +3,13 @@ frames: the whole fused chain (I420 wire → BGR → letterbox → SCRFD → NMS
 chip warp → ArcFace → quality → packed ``[B, F, 17+D]``), fp32 on both
 sides with the bundled weights.
 
+The combined face+person step (one upload, one chain of ops with YOLOv8n,
+one packed download) against the JAX package's combined program, and
+against the port's separate face and person programs on one upload.
+
 Tolerances: identical valid slots; boxes and landmarks atol 1e-2 px; feats
-cosine ≥ 0.9999; quality rtol 1e-3 (a variance of the warped chip).
+cosine ≥ 0.9999; quality rtol 1e-3 (a variance of the warped chip); person
+boxes atol 1e-2 px, scores atol 1e-4.
 """
 
 import numpy as np
@@ -15,13 +20,17 @@ torch = pytest.importorskip("torch")
 
 from person_capture_tpu.models import arcface as JAF  # noqa: E402
 from person_capture_tpu.models import scrfd as JSD  # noqa: E402
+from person_capture_tpu.models import yolov8 as JY  # noqa: E402
 from person_capture_tpu.models.zoo import resolve_weights  # noqa: E402
 from person_capture_tpu.pipeline import backends as JB  # noqa: E402
 from person_capture_tpu.video.synthetic import (FacePlacement,  # noqa: E402
                                                 draw_face)
 from person_capture_tpu_torch.models import arcface as TAF  # noqa: E402
 from person_capture_tpu_torch.models import scrfd as TSD  # noqa: E402
+from person_capture_tpu_torch.models import yolov8 as TY  # noqa: E402
 from person_capture_tpu_torch.pipeline import backends as TB  # noqa: E402
+from person_capture_tpu_torch.pipeline import recovery as TR  # noqa: E402
+from person_capture_tpu_torch.video.synthetic import draw_person  # noqa: E402
 
 DET = 160
 MAX_FACES = 4
@@ -128,3 +137,73 @@ def test_pad_batch_and_lazy_backend():
     assert lazy.extract_batch(None, None) == "out"
     assert lazy.score_thresh == 0.25 and lazy.det_size == 640
     assert built == [1]
+
+
+@pytest.fixture(scope="module")
+def person_pair():
+    w = resolve_weights("auto", "yolov8n")
+    kw = dict(det_size=DET, conf=0.3, max_det=4, weights=w)
+    return (JB.YoloPersonBackend(cfg=JY.YOLOV8N, dtype=jnp.float32, **kw),
+            TB.YoloPersonBackend(cfg=TY.YOLOV8N, dtype=torch.float32,
+                                 device="cpu", **kw))
+
+
+def _frames_with_persons():
+    """:func:`_frames` with small drawn persons, which the bundled person
+    weights find on a 160 canvas."""
+    out = _frames()
+    draw_person(out[0], FacePlacement(0, 3, (110, 20, 124, 36)))
+    draw_person(out[3], FacePlacement(3, 4, (12, 10, 26, 26)))
+    return out
+
+
+def _check_person(got, want):
+    np.testing.assert_array_equal(got["mask"], want["mask"])
+    m = want["mask"]
+    np.testing.assert_allclose(got["boxes"][m], want["boxes"][m], atol=1e-2)
+    np.testing.assert_allclose(got["scores"][m], want["scores"][m],
+                               atol=1e-4)
+
+
+def test_combined_wire_program_matches_jax(pair, person_pair):
+    jb, tb = pair
+    jp, tp = person_pair
+    frames = _frames_with_persons()
+    valid = np.array([True, True, True, False])
+    want_face, want_person = jb.submit_wire_with_person(jp, frames, valid)()
+    got_face, got_person = tb.submit_wire_with_person(tp, frames, valid)()
+    _check(got_face, want_face)
+    _check_person(got_person, want_person)
+    assert want_person["mask"][0].any() and want_person["mask"][3].sum() == 0
+    # shared upload: the combined step and the separate programs agree
+    dev = tb.upload_shared(frames)
+    face_a = tb.submit_device(dev, valid)()
+    person_a = tp.submit_device(dev, valid)()
+    face_b, person_b = tb.submit_device_with_person(tp, dev, valid)()
+    for k in face_a:
+        np.testing.assert_allclose(face_a[k], face_b[k], atol=1e-5,
+                                   err_msg=k)
+        np.testing.assert_allclose(face_b[k], got_face[k], atol=1e-5,
+                                   err_msg=k)
+    for k in ("boxes", "scores", "mask"):
+        np.testing.assert_array_equal(person_a[k], person_b[k], err_msg=k)
+        np.testing.assert_array_equal(person_b[k], got_person[k], err_msg=k)
+
+
+def test_recovery_facade_exposes_the_combined_program(pair, person_pair):
+    """RecoveringFaceBackend mirrors the inner backend's combined entry
+    points, so the main pass takes its combined-wire branch."""
+    jb, tb = pair
+    _, tp = person_pair
+    rec = TR.RecoveringFaceBackend(tb, TR.RecoveryPolicy(rot_adaptive=False))
+    for name in ("upload_shared", "submit_device",
+                 "submit_device_with_person", "submit_wire_with_person"):
+        assert hasattr(rec, name), name
+    assert hasattr(tp, "_fused")
+    frames = _frames_with_persons()
+    valid = np.array([True, True, True, False])
+    face, person = rec.submit_wire_with_person(tp, frames, valid)()
+    want_face, want_person = tb.submit_wire_with_person(tp, frames, valid)()
+    np.testing.assert_array_equal(person["mask"], want_person["mask"])
+    np.testing.assert_array_equal(face["mask"], want_face["mask"])
+    assert set(face) >= {"boxes", "mask", "feats", "quality"}

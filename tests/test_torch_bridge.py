@@ -10,6 +10,7 @@ torch = pytest.importorskip("torch")
 from person_capture_tpu_torch.models import arcface as AF  # noqa: E402
 from person_capture_tpu_torch.models import bridge as B  # noqa: E402
 from person_capture_tpu_torch.models import scrfd as SD  # noqa: E402
+from person_capture_tpu_torch.models import yolov8 as YV  # noqa: E402
 from person_capture_tpu_torch.models.zoo import (  # noqa: E402
     bundled_weights_path, resolve_weights)
 from person_capture_tpu_torch.tools.weights import (  # noqa: E402
@@ -19,6 +20,10 @@ CASES = {
     "scrfd_2.5g": (lambda: SD.SCRFD(SD.SCRFD_2_5G), B.load_scrfd),
     "scrfd_tiny": (lambda: SD.SCRFD(SD.TINY), B.load_scrfd),
     "arcface_synth": (lambda: AF.IResNet(AF.SYNTH_R18), B.load_arcface),
+    # YOLOv8n has 297 leaves; the face models add the keypoint branches
+    **{name: (lambda name=name: YV.YoloV8(YV.CONFIGS[name]), B.load_yolov8)
+       for name in ("yolov8n", "yolo_tiny", "yolov8n_face",
+                    "yolo_face_tiny")},
 }
 
 
@@ -41,6 +46,15 @@ def test_bundled_checkpoint_fills_every_tensor(name):
         np.testing.assert_array_equal(
             sd["backbone.stem.bn.running_var"].numpy(),
             flat["batch_stats/_Backbone_0/ConvBN_0/BatchNorm_0/var"])
+    elif name.startswith("yolo"):
+        np.testing.assert_array_equal(
+            sd["stem.conv.weight"].numpy(),
+            flat["params/ConvSiLU_0/Conv_0/kernel"].transpose(3, 2, 0, 1))
+        # the level-0 class conv is the second head Conv
+        np.testing.assert_array_equal(sd["heads.0.cls.2.bias"].numpy(),
+                                      flat["params/Conv_1/bias"])
+        if name == "yolov8n":
+            assert len(flat) == 297
     else:
         np.testing.assert_array_equal(sd["fc.weight"].numpy(),
                                       flat["params/Dense_0/kernel"].T)

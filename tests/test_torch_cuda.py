@@ -114,3 +114,126 @@ def test_fused_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         H.hdr_to_sdr_bgr(y, uv[:2])
     with pytest.raises(ValueError, match="CUDA tensors"):
         H.hdr_to_sdr_bgr_cuda(y, uv.cpu())
+
+
+# --- the CLI defaults on the card -------------------------------------------
+
+def _default_fixture(d):
+    """320×240 PQ-coded fixture with a person under a 24-px face (the size
+    the bundled person weights find at det 640), two face segments, and its
+    P010 planes at 640×480."""
+    import cv2
+    import numpy as np
+
+    from person_capture_tpu_torch.video.synthetic import (
+        FacePlacement, draw_face, generate_video, p010_from_pq_bgr,
+        write_pq_video)
+
+    sv = generate_video(str(d / "sdr.mp4"), width=320, height=240, fps=30,
+                        total_frames=40, segments=[(5, 18, 0), (24, 34, 0)],
+                        moving=True, seed=1, draw_body=True, face_px=24)
+    write_pq_video(str(d / "sdr.mp4"), str(d / "vid.mp4"))
+    ref = np.full((200, 200, 3), 60, np.uint8)
+    draw_face(ref, FacePlacement(0, 0, (40, 40, 160, 160)))
+    cv2.imwrite(str(d / "ref.png"), ref)
+    cap = cv2.VideoCapture(str(d / "vid.mp4"))
+    planes = {}
+    for i in range(40):
+        ok, frame = cap.read()
+        assert ok
+        planes[i] = p010_from_pq_bgr(frame, 640, 480)
+    cap.release()
+    return sv.identity_spans(0), planes
+
+
+def _default_run(d, planes, device, monkeypatch):
+    """The port's CLI at its defaults with curation off; returns the hit
+    frames and, per composed crop, whether a person box shaped it."""
+    from person_capture_tpu_torch import main as M
+    from person_capture_tpu_torch.core import compose_profiles as CP
+    from person_capture_tpu_torch.hdr.exporter import ArrayP010Source
+
+    composed = []
+    compose = CP.compose_dataset_crop
+
+    def spy(*a, **kw):
+        composed.append((kw["frame_idx"], kw["subject_box"] is not None))
+        return compose(*a, **kw)
+
+    monkeypatch.setattr(CP, "compose_dataset_crop", spy)
+    argv = ["--video", str(d / "vid.mp4"), "--ref", str(d / "ref.png"),
+            "--out", str(d / device), "--batch", "8", "--det-size", "320",
+            "--prescan", "--device", device,
+            "--set", "curate_enable=false", "--set", "prescan_cache_mode=off"]
+    if device == "cpu":
+        argv += ["--compute-dtype", "float32"]
+    ap = M.build_parser()
+    args = ap.parse_args(argv)
+    cfg = M.build_config(args, ap)
+    runtime = M.build_runtime(cfg, args, ap)
+    if device == "cpu":          # the CPU yardstick runs YOLO in fp32 too
+        runtime["person"].model.float()
+    eng = M.make_engine(cfg, runtime, status=lambda *a, **k: None)
+    eng.hdr_source_factory = lambda *_: ArrayP010Source(planes, 640, 480)
+    res = eng.run()
+    assert res.ok, res.error
+    return sorted(h.frame for h in res.mainpass.hits), sorted(composed)
+
+
+@pytest.mark.cuda
+def test_default_configuration_run_on_the_card(cuda, tmp_path, monkeypatch):
+    """The CLI defaults (YOLOv8n person detection in the combined program,
+    madvr_like stills) in bf16 on the card, held by decisions to the same
+    run in fp32 on the CPU: the same hits, and the same crops composed
+    around a person box."""
+    monkeypatch.setenv("PERSON_CAPTURE_FORCE_HDR", "1")
+    truth, planes = _default_fixture(tmp_path)
+    hits, composed = _default_run(tmp_path, planes, "cuda", monkeypatch)
+    cpu_hits, cpu_composed = _default_run(tmp_path, planes, "cpu",
+                                          monkeypatch)
+    assert hits and all(any(s <= f <= e for s, e in truth) for f in hits)
+    assert hits == cpu_hits
+    assert composed == cpu_composed
+    assert any(person for _, person in composed)
+
+
+@pytest.mark.cuda
+def test_combined_program_matches_separate_programs(cuda):
+    """One upload, one chain of ops, one download: the same slots as the
+    face and person programs run one after the other on the same batch."""
+    import numpy as np
+
+    from person_capture_tpu_torch.models import arcface as AF
+    from person_capture_tpu_torch.models import scrfd as SD
+    from person_capture_tpu_torch.models import yolov8 as YV
+    from person_capture_tpu_torch.models.zoo import resolve_weights
+    from person_capture_tpu_torch.pipeline.backends import (
+        ScrfdArcFaceBackend, YoloPersonBackend)
+    from person_capture_tpu_torch.video.synthetic import (FacePlacement,
+                                                          draw_person)
+
+    face = ScrfdArcFaceBackend(
+        SD.SCRFD_2_5G, AF.SYNTH_R18, det_size=640, max_faces=8,
+        scrfd_weights=resolve_weights("auto", "scrfd_2.5g"),
+        arcface_weights=resolve_weights("auto", "arcface_synth"))
+    person = YoloPersonBackend(weights=resolve_weights("auto", "yolov8n"))
+    rng = np.random.default_rng(0)
+    frames = rng.integers(30, 70, (16, 480, 640, 3)).astype(np.uint8)
+    for i in range(0, 16, 2):
+        draw_person(frames[i], FacePlacement(i, 0, (200 + 10 * i, 150,
+                                                    240 + 10 * i, 190)))
+    valid = np.ones(16, bool)
+    valid[-3:] = False
+    dev = face.upload_shared(frames)
+    face_a = face.submit_device(dev, valid)()
+    person_a = person.submit_device(dev, valid)()
+    for combined in (face.submit_device_with_person(person, dev, valid),
+                     face.submit_wire_with_person(person, frames, valid)):
+        face_b, person_b = combined()
+        np.testing.assert_array_equal(face_b["mask"], face_a["mask"])
+        np.testing.assert_array_equal(person_b["mask"], person_a["mask"])
+        m = person_a["mask"]
+        np.testing.assert_allclose(person_b["boxes"][m], person_a["boxes"][m],
+                                   atol=0.5)
+    assert person_a["mask"][:13:2].any(axis=1).all()
+    assert face_a["mask"].any()

@@ -264,18 +264,3 @@ def test_stills_render_peak_detect_through_the_plain_chain():
     got = TS.render_sdr_crop_from_p010(y, uv, crop, tp).astype(int)
     assert got.shape == want.shape
     assert np.abs(got - want).max() <= 1
-
-
-@pytest.mark.parametrize("field,value,setting", [
-    ("color_match", True, "hdr_sdr_quality=fast"),
-    ("speckle_cleanup", True, "hdr_wic_speckle_cleanup=false"),
-    ("shadow_deblob", 0.5, "wic_shadow_deblob_strength=0"),
-    ("guide_cleanup", True, "hdr_wic_yuv444_guide_cleanup=false"),
-])
-def test_unported_still_stages_raise(field, value, setting):
-    p = TS.HdrExportParams.from_cfg(_fast_cfg(SessionConfig))
-    TS.check_ported(p)
-    setattr(p, field, value)
-    with pytest.raises(ValueError, match=setting):
-        TS.render_sdr_crop_from_p010(*_p010(), (0, 0, 16, 16), p)
-

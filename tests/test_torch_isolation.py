@@ -43,6 +43,16 @@ from person_capture_tpu_torch.hdr_preview import tonemap_preview_frame
 y = np.full((8, 12), 500 << 6, np.uint16)
 uv = np.full((4, 6, 2), 512 << 6, np.uint16)
 assert tonemap_preview_frame(y, uv, device="cpu").shape == (8, 12, 3)
+from person_capture_tpu_torch.pipeline.backends import YoloPersonBackend
+from person_capture_tpu_torch.models import yolov8 as YV
+pb = YoloPersonBackend(YV.TINY, det_size=64, max_det=4, dtype=torch.float32,
+                       device="cpu")
+face, person = be.submit_wire_with_person(pb, frames, np.ones(2, bool))()
+assert person["boxes"].shape == (2, 4, 4), person["boxes"].shape
+from person_capture_tpu_torch.kernels.colormatch import color_match_bgr
+from person_capture_tpu_torch.kernels.cleanup import despeckle_bgr
+img = torch.from_numpy(frames[0])
+assert despeckle_bgr(color_match_bgr(img, img[::2, ::2]))[0].shape == img.shape
 
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)
