@@ -50,7 +50,30 @@ non-zero without printing a result:
               general chain); then, in turns, the combined program against
               the face-only program on one batch of 64 analysis frames, and
               the madvr_like render against the ``fast`` fused render at the
-              first still's shape.
+              first still's shape;
+8. curate   — the CLI defaults whole: phase 7's fixture and settings with
+              curation on (no ``--set`` but the harness's cache and profile
+              settings). The run ends with the curator over its crops:
+              ``dataset_out/`` must hold metrics.json, selection_debug.csv
+              and 1 to min(200, crops) images, each one of the run's crops;
+              prints the curator's wall time, pool, selection and the
+              describe batches it dispatched;
+9. reid     — the same with ``--match-mode either`` and the bundled
+              clip_reid_s tower: hits in the truth spans, the tower called
+              on the main pass, the curator given it as its CLIP backend;
+              then a ViT-L-14 tower at a seeded random init embeds 16 of the
+              run's person crops in bf16 and in fp32 (cosine ≥ 0.99 per
+              crop), and the device time of a 16-crop batch of ViT-L-14
+              (bf16 and fp32) and clip_reid_s, in turns;
+10. yolo_face — ``--face-model yolov8n-face`` (bundled weights, the
+              ±45/±135° probes on) on phase 4's fixture, curation off: hits
+              in the truth spans, every span hit.
+
+Phases 8 to 10 reach no hand-written kernel beyond the tone-map: the CLIP
+tower, the curator's pHash and MMR are torch ops and host code, as they are
+XLA ops and host code in the JAX package. Each phase's tone-map launches
+are counted from 0 just before its run and printed in the ``kernels``
+line.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -440,11 +463,12 @@ DEFAULT_SETS = ("curate_enable=false",)
 DEFAULT_FACE_PX = 48
 
 
-def cli_config(vid: str, ref_path: str, out: str, sets=SLICE_SETS):
+def cli_config(vid: str, ref_path: str, out: str, sets=SLICE_SETS,
+               flags=()):
     from person_capture_tpu_torch import main as M
 
     argv = ["--video", vid, "--ref", ref_path, "--out", out, "--prescan",
-            "--set", "prescan_cache_mode=off",
+            *flags, "--set", "prescan_cache_mode=off",
             # host-side per-stage wall times (utils/timing.StepTimer)
             "--set", "tpu_profile=true"]
     for setting in sets:
@@ -497,37 +521,52 @@ def check_stills(out: str, truth) -> list:
     return rows
 
 
-def phase_pipeline(work: str):
+def run_cli(work: str, name: str, fixture, sets, flags=(), hook=None):
+    """One CLI run through ``build_runtime`` → ``make_engine`` → ``run``
+    with HDR stills from ``_P010FromVideo``, the tone-map counts set to 0
+    just before the run and read just after; requires the run to succeed
+    with hits and stills as :func:`check_stills` does. ``hook(runtime,
+    engine)`` runs before the run."""
     from person_capture_tpu_torch import main as M
 
-    vid, ref_path, truth = make_fixture(work)
-    out = os.path.join(work, "out")
-    os.environ["PERSON_CAPTURE_FORCE_HDR"] = "1"
-    ap, args, cfg = cli_config(vid, ref_path, out)
+    vid, ref_path, truth = fixture
+    out = os.path.join(work, f"out_{name}")
+    ap, args, cfg = cli_config(vid, ref_path, out, sets, flags)
     t0 = time.perf_counter()
     runtime = M.build_runtime(cfg, args, ap)
     eng = M.make_engine(cfg, runtime, status=lambda m: None)
     eng.hdr_source_factory = lambda video, w, h, fps: _P010FromVideo(video)
+    if hook is not None:
+        hook(runtime, eng)
     setup_s = time.perf_counter() - t0
-
     reset_launches()
     t0 = time.perf_counter()
     res = eng.run()
     run_s = time.perf_counter() - t0
     launches = read_launches()
-    require(res.ok, f"engine run failed: {res.error}")
+    require(res.ok, f"{name} run failed: {res.error}")
     rows = check_stills(out, truth)
-    hits = [int(r["frame"]) for r in rows]
+    return dict(out=out, cfg=cfg, runtime=runtime, engine=eng, result=res,
+                rows=rows, hit_frames=[int(r["frame"]) for r in rows],
+                launches=launches, setup_seconds=setup_s, seconds=run_s)
+
+
+def phase_pipeline(work: str):
+    fixture = make_fixture(work)
+    os.environ["PERSON_CAPTURE_FORCE_HDR"] = "1"
+    run = run_cli(work, "pipeline", fixture, SLICE_SETS)
+    rows, launches = run["rows"], run["launches"]
     stills = len(rows)
     require(launches["hdr_to_sdr_bgr"] >= stills,
             f"{launches['hdr_to_sdr_bgr']} fused launches for {stills} "
             f"stills")
-    emit(phase="pipeline", truth_spans=truth, hits=len(hits),
-         hit_frames=hits, stills=stills, launches=launches,
-         setup_seconds=setup_s, seconds=run_s,
-         source_frames_per_s=150 / run_s, prescan_spans=res.spans,
-         stages=eng._timer.summary())
-    return rows, launches, (vid, ref_path, truth, runtime)
+    emit(phase="pipeline", truth_spans=fixture[2], hits=len(rows),
+         hit_frames=run["hit_frames"], stills=stills, launches=launches,
+         setup_seconds=run["setup_seconds"], seconds=run["seconds"],
+         source_frames_per_s=150 / run["seconds"],
+         prescan_spans=run["result"].spans,
+         stages=run["engine"]._timer.summary())
+    return rows, launches, (*fixture, run["runtime"])
 
 
 def phase_preview(work: str, fixture):
@@ -692,38 +731,29 @@ def phase_defaults(work: str) -> dict:
     import numpy as np
     import torch
 
-    from person_capture_tpu_torch import main as M
     from person_capture_tpu_torch.hdr.stills import (
         HdrExportParams, render_sdr_crop_from_p010, scale_crop_xyxy_to_source)
     from person_capture_tpu_torch.video.probe import color_range_full
 
-    vid, ref_path, truth = make_fixture(os.path.join(work, "defaults"),
-                                        draw_body=True,
-                                        face_px=DEFAULT_FACE_PX)
-    out = os.path.join(work, "out_defaults")
-    ap, args, cfg = cli_config(vid, ref_path, out, DEFAULT_SETS)
-    t0 = time.perf_counter()
-    runtime = M.build_runtime(cfg, args, ap)
-    face, person = runtime["inner_face"], runtime["person"]
-    require(person is not None, "the defaults built no person detector")
-    eng = M.make_engine(cfg, runtime, status=lambda m: None)
-    eng.hdr_source_factory = lambda video, w, h, fps: _P010FromVideo(video)
-    setup_s = time.perf_counter() - t0
+    fixture = make_fixture(os.path.join(work, "defaults"), draw_body=True,
+                           face_px=DEFAULT_FACE_PX)
+    vid, ref_path, truth = fixture
+    composed, dispatches, persons, restores = [], [], {}, []
 
-    composed, dispatches, persons = [], [], {}
-    restore = _watch_defaults_run(face, composed, dispatches, persons)
-    reset_launches()
-    t0 = time.perf_counter()
+    def hook(runtime, eng):
+        require(runtime["person"] is not None,
+                "the defaults built no person detector")
+        restores.append(_watch_defaults_run(runtime["inner_face"], composed,
+                                            dispatches, persons))
+
     try:
-        res = eng.run()
+        run = run_cli(work, "defaults", fixture, DEFAULT_SETS, hook=hook)
     finally:
-        restore()
-    run_s = time.perf_counter() - t0
-    launches = read_launches()
-    require(res.ok, f"engine run at the defaults failed: {res.error}")
-    rows = check_stills(out, truth)
-    hits = [int(r["frame"]) for r in rows]
-    stages = eng._timer.summary()
+        for restore in restores:
+            restore()
+    face, person = run["runtime"]["inner_face"], run["runtime"]["person"]
+    cfg, rows, hits = run["cfg"], run["rows"], run["hit_frames"]
+    stages = run["engine"]._timer.summary()
     batches = stages["main.submit"]["count"]
     require(batches > 0 and len(dispatches) == batches,
             f"{len(dispatches)} combined dispatches for {batches} main-pass "
@@ -783,17 +813,230 @@ def phase_defaults(work: str) -> dict:
          combined_dispatches=len(dispatches),
          person_box_share_of_hit_frames=share,
          crops_composed=len(composed), crops_around_person_box=around,
-         launches=launches,
+         launches=run["launches"],
          launches_note="0 expected: contrast recovery 0.30 routes the "
                        "stills to the general torch chain, as in the JAX "
                        "package",
-         setup_seconds=setup_s, seconds=run_s,
-         source_frames_per_s=150 / run_s, prescan_spans=res.spans,
+         setup_seconds=run["setup_seconds"], seconds=run["seconds"],
+         source_frames_per_s=150 / run["seconds"],
+         prescan_spans=run["result"].spans,
          stages=stages, step_batch=64, step=step,
          still_shape=list(got.shape), still=renders,
          madvr_card_vs_cpu_max_lsb=lsb,
          madvr_card_vs_cpu_differing_share=differ_share)
-    return launches
+    return run["launches"], fixture
+
+
+def watch_curator(seen: dict):
+    """Spy on ``Curator.describe``: counts the describe batches it submits
+    to the face backend, keeps the CLIP backend it was given, and sets
+    ``seen["curating"]`` while it runs. Returns the function that undoes
+    it."""
+    from person_capture_tpu_torch.curator import core as CC
+
+    describe = CC.Curator.describe
+    seen.update(describe_batches=0, curating=False, clip_backend="unset")
+
+    class Counted:
+        def __init__(self, face):
+            self.face = face
+
+        def submit_batch(self, frames, valid, frame_idxs=None):
+            seen["describe_batches"] += 1
+            return self.face.submit_batch(frames, valid, frame_idxs)
+
+    def spied(self, paths, fps_hint=30.0):
+        face, self.face = self.face, Counted(self.face)
+        seen.update(clip_backend=self.clip, curating=True)
+        try:
+            return describe(self, paths, fps_hint)
+        finally:
+            self.face = face
+            seen["curating"] = False
+
+    CC.Curator.describe = spied
+    return lambda: setattr(CC.Curator, "describe", describe)
+
+
+IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".webp")
+
+
+def check_curation(out: str) -> dict:
+    """``dataset_out/`` holds metrics.json, selection_debug.csv and 1 to
+    min(200, crops) images, each one of the run's crops; returns the
+    curator's metrics with the selected names."""
+    ds = os.path.join(out, "dataset_out")
+    require(os.path.isdir(ds), "no dataset_out/ after a run with curation")
+    files = os.listdir(ds)
+    require("metrics.json" in files and "selection_debug.csv" in files,
+            f"dataset_out/ lacks metrics.json or selection_debug.csv: "
+            f"{sorted(files)}")
+    picked = sorted(f for f in files if f.lower().endswith(IMAGE_EXTS))
+    crops = {f for f in os.listdir(os.path.join(out, "crops"))
+             if f.lower().endswith(IMAGE_EXTS)}
+    require(1 <= len(picked) <= min(200, len(crops)),
+            f"{len(picked)} images selected from {len(crops)} crops")
+    stray = sorted(set(picked) - crops)
+    require(not stray, f"selected files that are not crops: {stray}")
+    with open(os.path.join(ds, "metrics.json")) as fh:
+        metrics = json.load(fh)
+    return dict(metrics, crops=len(crops), selected_files=picked)
+
+
+def phase_curate(work: str, fixture) -> dict:
+    """Phase 8: the CLI defaults whole — phase 7's fixture and settings with
+    curation on."""
+    seen = {}
+    restore = watch_curator(seen)
+    try:
+        run = run_cli(work, "curate", fixture, sets=())
+    finally:
+        restore()
+    cur = check_curation(run["out"])
+    require(seen["describe_batches"] >= 1, "the curator dispatched no "
+            "describe batch")
+    require(seen["clip_backend"] is None, "the curator got a CLIP backend "
+            "at the defaults (no ReID match mode)")
+    emit(phase="curate", hits=len(run["rows"]), hit_frames=run["hit_frames"],
+         stills=len(run["rows"]), crops=cur["crops"], pool=cur["pool"],
+         selected=cur["selected"], selected_files=cur["selected_files"],
+         scenes=cur["scenes"], categories=cur["categories"],
+         curator_wall_s=cur["wall_s"],
+         describe_batches=seen["describe_batches"],
+         launches=run["launches"], setup_seconds=run["setup_seconds"],
+         seconds=run["seconds"], stages=run["engine"]._timer.summary())
+    return run["launches"]
+
+
+def vit_flops(cfg, n: int) -> float:
+    """Multiply-adds ×2 of the CLIP tower on ``n`` crops: patch embed, per
+    layer qkv / attention / out / MLP, the projection."""
+    t = (cfg.image_size // cfg.patch) ** 2 + 1
+    w = cfg.width
+    per_layer = (2 * t * w * 3 * w + 2 * 2 * t * t * w + 2 * t * w * w
+                 + 2 * 2 * t * w * 4 * w)
+    embed = 2 * (t - 1) * 3 * cfg.patch ** 2 * w
+    return float(n * (embed + cfg.layers * per_layer + 2 * w * cfg.embed_dim))
+
+
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
+
+
+def phase_reid(work: str, fixture) -> dict:
+    """Phase 9: ``--match-mode either`` with the bundled clip_reid_s on
+    phase 7's fixture (curation on), then a ViT-L-14 tower at random init,
+    bf16 against fp32 on 16 of the run's person crops, and the device time
+    of a 16-crop batch of each tower in turns."""
+    import numpy as np
+    import torch
+
+    from person_capture_tpu_torch.models import clip_vit as CV
+    from person_capture_tpu_torch.pipeline.backends import ClipReidBackend
+
+    seen = {}
+    calls = {"seed": 0, "main": 0, "curator": 0, "crops": []}
+
+    def hook(runtime, eng):
+        reid = runtime["reid"]
+        require(isinstance(reid, ClipReidBackend)
+                and reid.embed_dim == CV.REID_S.embed_dim,
+                "--match-mode either did not build the bundled ReID tower")
+        extract, seed = reid.extract, eng._seed_reid_ref
+
+        def counted(crops):
+            key = ("seed" if calls.get("seeding") else
+                   "curator" if seen.get("curating") else "main")
+            calls[key] += 1
+            if key == "main":
+                calls["crops"] += [np.array(c) for c in
+                                   crops[:16 - len(calls["crops"])]]
+            return extract(crops)
+
+        def seeding(paths):
+            calls["seeding"] = True
+            try:
+                return seed(paths)
+            finally:
+                calls["seeding"] = False
+
+        reid.extract = counted
+        eng._seed_reid_ref = seeding
+
+    restore = watch_curator(seen)
+    try:
+        run = run_cli(work, "reid", fixture, sets=(),
+                      flags=("--match-mode", "either"), hook=hook)
+    finally:
+        restore()
+    reid = run["runtime"]["reid"]
+    require(calls["main"] >= 1, "the main pass never called the ReID tower")
+    require(seen["clip_backend"] is reid, "the curator did not get the ReID "
+            "backend as its clip_backend")
+    require(calls["curator"] >= 1, "the curator never embedded its pool")
+    cur = check_curation(run["out"])
+
+    crops = calls["crops"]
+    crops = (crops * 16)[:16]
+    big = ClipReidBackend(cfg=CV.VIT_L_14, device="cuda")
+    plain = ClipReidBackend(cfg=CV.VIT_L_14, dtype=torch.float32,
+                            device="cuda")
+    require(big.dtype == torch.bfloat16, "the ReID tower's default dtype "
+            "is not bf16")
+    cos = (big.extract(crops) * plain.extract(crops)).sum(-1)
+    require(float(cos.min()) >= 0.99, f"ViT-L-14 bf16 vs fp32 on the card: "
+            f"cosine {cos.min():.5f} < 0.99")
+
+    def device_batch(be):
+        x = np.stack([be._preprocess(c) for c in crops]).astype(np.float32)
+        return torch.from_numpy(x).cuda()
+
+    x_big, x_small = device_batch(big), device_batch(reid)
+    torch.cuda.synchronize()
+    times = in_turns({
+        "vit_l_14_ms": lambda: CV.encode_images(big.model, x_big),
+        "vit_l_14_fp32_ms": lambda: CV.encode_images(plain.model, x_big),
+        "reid_s_ms": lambda: CV.encode_images(reid.model, x_small)},
+        timer=lambda fn: cuda_ms(fn, reps=5, inner=3, warmup=2))
+    flops = {name: vit_flops(cfg, 16)
+             for name, cfg in (("vit_l_14", CV.VIT_L_14),
+                               ("reid_s", CV.REID_S))}
+    emit(phase="reid", hits=len(run["rows"]), hit_frames=run["hit_frames"],
+         stills=len(run["rows"]), reid_seed_calls=calls["seed"],
+         reid_main_pass_calls=calls["main"],
+         reid_curator_calls=calls["curator"], pool=cur["pool"],
+         selected=cur["selected"], curator_wall_s=cur["wall_s"],
+         describe_batches=seen["describe_batches"],
+         vit_l_14_bf16_vs_fp32_cosine=[float(c) for c in cos],
+         batch=16, batch_ms=times,
+         gflop_per_batch={k: v / 1e9 for k, v in flops.items()},
+         bf16_bound_ms={k: v / BF16_OPS_PER_S * 1e3
+                        for k, v in flops.items()},
+         launches=run["launches"], setup_seconds=run["setup_seconds"],
+         seconds=run["seconds"], stages=run["engine"]._timer.summary())
+    return run["launches"]
+
+
+def phase_yolo_face(work: str, fixture) -> dict:
+    """Phase 10: ``--face-model yolov8n-face`` (the bundled YOLOv8-face
+    weights) on phase 4's fixture, curation off."""
+    from person_capture_tpu_torch.models import yolov8 as YV
+
+    run = run_cli(work, "yolo_face", fixture, sets=("curate_enable=false",),
+                  flags=("--face-model", "yolov8n-face"))
+    face = run["runtime"]["inner_face"]
+    require(run["runtime"]["face_cfg"] is YV.YOLOV8N_FACE
+            and isinstance(face.scrfd_model, YV.YoloV8),
+            "--face-model yolov8n-face did not build the YOLOv8-face "
+            "detector")
+    probes = run["engine"].backend.policy.affine_probes
+    require(probes, "the YOLOv8-face run has no ±45/±135° probes")
+    emit(phase="yolo_face", hits=len(run["rows"]),
+         hit_frames=run["hit_frames"], stills=len(run["rows"]),
+         affine_probes=probes, launches=run["launches"],
+         setup_seconds=run["setup_seconds"], seconds=run["seconds"],
+         prescan_spans=run["result"].spans,
+         stages=run["engine"]._timer.summary())
+    return run["launches"]
 
 
 def main() -> int:
@@ -816,13 +1059,22 @@ def main() -> int:
         rows, launches, fixture = phase_pipeline(work)
         phase_preview(work, fixture)
         planar_err, still = phase_main_path_shape(rows)
-        defaults_launches = phase_defaults(work)
+        defaults_launches, body_fixture = phase_defaults(work)
+        later = {"curate": phase_curate(work, body_fixture),
+                 "reid": phase_reid(work, body_fixture),
+                 "yolo_face": phase_yolo_face(work, fixture[:3])}
     source = "person_capture_tpu_torch/csrc/tonemap.cu"
     replaces = "person_capture_tpu/kernels/hdr.py:217"
+
+    def later_launches(name):
+        return {f"launches_{phase}": counts[name]
+                for phase, counts in later.items()}
+
     print(json.dumps({"kernels": [{
         "name": "hdr_to_sdr_bgr", "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches["hdr_to_sdr_bgr"],
         "launches_defaults": defaults_launches["hdr_to_sdr_bgr"],
+        **later_launches("hdr_to_sdr_bgr"),
         "max_abs_err": max(fused["max_lsb"], still["max_lsb"]),
         "max_abs_err_unit": "8-bit steps",
         "max_differing_share": max(fused["max_differing_share"],
@@ -839,6 +1091,7 @@ def main() -> int:
         "name": "tonemap_planes", "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches["tonemap_planes"],
         "launches_defaults": defaults_launches["tonemap_planes"],
+        **later_launches("tonemap_planes"),
         "max_abs_err": max(planar["max_abs_err"], planar_err),
         "ms": planar["ms"], "plain_ms": planar["plain_ms"],
         "bound_ms": planar["bound_ms"], "bound_by": planar["bound_by"],

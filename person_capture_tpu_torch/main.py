@@ -1,14 +1,13 @@
 """CLI of the torch port — the same flags as ``person_capture_tpu.main``,
 driving the PyTorch/CUDA pipeline:
 
-    python -m person_capture_tpu_torch.main --video V --ref R --out OUT \
-        --set curate_enable=false
+    python -m person_capture_tpu_torch.main --video V --ref R --out OUT
 
 Runs on the CUDA device unless ``--device cpu`` is given. Branches the port
 does not carry yet (mesh/multi-host, ONNX weights, ultralytics ``.pt`` YOLO
-checkpoints, YOLO-face, CLIP-face, the ReID match modes, curation) raise
-``ValueError`` in :func:`build_runtime` naming the setting to change;
-nothing is silently left out.
+and open_clip ``.pt`` ReID checkpoints) raise ``ValueError`` in
+:func:`build_runtime` naming the setting to change; nothing is silently
+left out.
 """
 
 from __future__ import annotations
@@ -188,14 +187,6 @@ def check_ported(cfg, args) -> None:
                        ("--arcface-weights", args.arcface_weights)):
         if spec.lower().endswith(".onnx"):
             raise _unported("ONNX weights", f"pass a flax .npz to {flag}")
-    if not cfg.use_arcface:
-        raise _unported("the CLIP-face embedder",
-                        "run with --set use_arcface=true")
-    if cfg.match_mode != "face_only":
-        raise _unported(f"ReID (--match-mode {cfg.match_mode})",
-                        "run with --match-mode face_only")
-    if cfg.curate_enable:
-        raise _unported("curation", "run with --set curate_enable=false")
 
 
 def resolve_yolo(yolo_model: str):
@@ -227,6 +218,38 @@ def resolve_yolo(yolo_model: str):
     return yolo_cfg, resolve_weights("auto", yolo_name)
 
 
+def resolve_reid(backbone: str, weights_spec: str = "auto"):
+    """Resolve the ReID tower to ``(clip_cfg, variables|None)``.
+
+    "auto" takes the bundled synthetic-trained compact tower (the arch
+    becomes ``clip_reid_s``, as arcface "auto" takes the bundled embedder);
+    "random" keeps the requested arch at random init; a flax ``.npz`` loads
+    the requested arch through the zoo. An open_clip ``.pt``/``.pth``/
+    ``.bin`` checkpoint raises ``ValueError`` (its loader is not ported);
+    any other spec that is not a file raises ``FileNotFoundError``."""
+    from .models import clip_vit as CV
+    from .models.zoo import resolve_weights
+
+    spec = (weights_spec or "auto").strip()
+    cfg = CV.CONFIGS.get(backbone, CV.VIT_L_14)
+    if spec.lower() in ("random", "none"):
+        return cfg, None
+    if os.path.isfile(spec):
+        if spec.lower().endswith((".pt", ".pth", ".bin")):
+            raise _unported(f"the open_clip checkpoint loader "
+                            f"(--reid-weights {spec!r})",
+                            "pass a flax .npz checkpoint, auto or random to "
+                            "--reid-weights")
+        return cfg, resolve_weights(spec, cfg.name)
+    if spec.lower() not in ("auto", ""):
+        raise FileNotFoundError(
+            f"--reid-weights {spec!r}: not a file and not auto/random")
+    w = resolve_weights("auto", "clip_reid_s")
+    if w is not None:
+        return CV.REID_S, w
+    return cfg, None
+
+
 def build_runtime(cfg, args, ap) -> dict:
     """Resolve weights and build every model backend the run needs, ONCE
     (reusable across videos). Returns the same keys as the JAX package's
@@ -234,26 +257,30 @@ def build_runtime(cfg, args, ap) -> dict:
     import torch
 
     from .models import arcface as AF
+    from .models import clip_vit as CV
     from .models import scrfd as SD
+    from .models import yolov8 as YV
     from .models.zoo import bundled_weights_path, resolve_weights
-    from .pipeline.backends import (LazyBackend, ScrfdArcFaceBackend,
-                                    YoloPersonBackend)
+    from .pipeline.backends import (ClipReidBackend, LazyBackend,
+                                    ScrfdArcFaceBackend, YoloPersonBackend)
 
     check_ported(cfg, args)
     device = resolve_device(cfg)
     dtype = (torch.bfloat16 if cfg.tpu_compute_dtype == "bfloat16"
              else torch.float32)
 
+    # face detector config: SCRFD names resolve from models/scrfd.py;
+    # "yolov8n-face"-style names select the YOLOv8-face detector
     fm = os.path.basename(args.face_model)
     for ext in (".pt", ".pth", ".onnx", ".npz"):
         if fm.lower().endswith(ext):       # NOT splitext: "scrfd_2.5g"
             fm = fm[:-len(ext)]            # has a dot inside the name
             break
     fm = fm.replace("-", "_").replace("_bnkps", "")
-    if "yolo" in fm:
-        raise _unported(f"the YOLOv8-face detector ({args.face_model!r})",
-                        "use --face-model scrfd_2.5g")
-    face_cfg = SD.CONFIGS.get(fm, SD.SCRFD_2_5G)
+    if fm in YV.CONFIGS and YV.CONFIGS[fm].kpt_shape[0]:
+        face_cfg = YV.CONFIGS[fm]
+    else:
+        face_cfg = SD.CONFIGS.get(fm, SD.SCRFD_2_5G)
     scrfd_w = resolve_weights(args.scrfd_weights, face_cfg.name)
 
     arc_model_name = args.arcface_model
@@ -270,17 +297,25 @@ def build_runtime(cfg, args, ap) -> dict:
     else:
         arc_w = resolve_weights(args.arcface_weights, arc_model_name)
 
+    # use_arcface off: a CLIP tower embeds the face chips, at random init
+    # as in the JAX runtime, which passes no CLIP-face weights either
+    clip_face_cfg = (None if cfg.use_arcface
+                     else CV.CONFIGS.get(cfg.clip_face_backbone))
+
     def face_backend(det_size: int, embed_slots: int = 0):
         return ScrfdArcFaceBackend(
             scrfd_cfg=face_cfg, arcface_cfg=arc_cfg, det_size=det_size,
             score_thresh=cfg.face_det_conf, max_faces=cfg.tpu_max_faces,
+            use_arcface=cfg.use_arcface, clip_face_cfg=clip_face_cfg,
             embed_slots=embed_slots, dtype=dtype, device=device,
             scrfd_weights=scrfd_w, arcface_weights=arc_w)
 
     backend = face_backend(args.det_size,
                            int(getattr(cfg, "tpu_embed_slots", 0) or 0))
     # high-imgsz full-frame re-probe backend (reference full-frame face
-    # short-circuit): the same module at another size, built on first use
+    # short-circuit): the same module at another size, built on first use.
+    # It mirrors the primary's embedder: a CLIP-face primary with an
+    # ArcFace rescue would score one RefBank in two embedding spaces
     fullframe_backend = None
     if (cfg.face_fullframe_when_missed
             and int(cfg.face_fullframe_imgsz) > int(args.det_size)):
@@ -289,9 +324,12 @@ def build_runtime(cfg, args, ap) -> dict:
     # the person detector builds when the match mode needs it and for
     # body-aware compose association (compose_detect_person_for_face,
     # default on). Like the JAX runtime, it takes neither --det-size nor
-    # --compute-dtype: det 640 and bf16 are its own defaults
+    # --compute-dtype: det 640 and bf16 are its own defaults; nor does the
+    # ReID tower (bf16 unless told otherwise)
     person_backend = None
-    if not cfg.skip_yolo_when_faceonly or cfg.compose_detect_person_for_face:
+    reid_backend = None
+    if (cfg.match_mode != "face_only" or not cfg.skip_yolo_when_faceonly
+            or cfg.compose_detect_person_for_face):
         try:
             yolo_cfg, yolo_w = resolve_yolo(cfg.yolo_model)
         except FileNotFoundError as e:
@@ -299,8 +337,17 @@ def build_runtime(cfg, args, ap) -> dict:
         person_backend = YoloPersonBackend(
             cfg=yolo_cfg, conf=cfg.min_det_conf, weights=yolo_w,
             device=device)
+    if cfg.match_mode in ("either", "both", "reid_only"):
+        cfg.disable_reid = False
+        try:
+            reid_cfg, reid_w = resolve_reid(cfg.reid_backbone,
+                                            args.reid_weights)
+        except FileNotFoundError as e:
+            ap.error(str(e))
+        reid_backend = ClipReidBackend(cfg=reid_cfg, weights=reid_w,
+                                       device=device)
     return {"inner_face": backend, "face_cfg": face_cfg,
-            "person": person_backend, "reid": None,
+            "person": person_backend, "reid": reid_backend,
             "fullframe": fullframe_backend}
 
 

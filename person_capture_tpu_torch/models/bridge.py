@@ -2,14 +2,15 @@
 
 The JAX package's weights are flax variable trees (read as numpy from the
 bundled ``.npz``; :func:`..tools.weights.load_npz_variables`). This module
-maps every leaf onto the torch modules of :mod:`.scrfd`, :mod:`.arcface`
-and :mod:`.yolov8`:
+maps every leaf onto the torch modules of :mod:`.scrfd`, :mod:`.arcface`,
+:mod:`.yolov8` and :mod:`.clip_vit`:
 
   * conv kernel HWIO → OIHW; Dense kernel (in, out) → (out, in);
   * BatchNorm ``params/scale,bias`` + ``batch_stats/mean,var`` → weight,
     bias, running_mean, running_var (eps lives on the modules: 1e-5 for
     SCRFD and ArcFace, 1e-3 for YOLOv8);
-  * GroupNorm ``scale,bias`` → weight, bias (``min(16, C)`` groups);
+  * GroupNorm and LayerNorm ``scale,bias`` → weight, bias (``min(16, C)``
+    groups; LayerNorm ε 1e-6 on the CLIP modules);
   * channelwise PReLU ``alpha``.
 
 It is strict both ways: a leaf the mapping does not consume raises, and so
@@ -128,6 +129,30 @@ def load_arcface(model, variables: Mapping):
     lv.bn("bn2", "BatchNorm_1")
     lv.dense("fc", "Dense_0")
     lv.bn("features", "BatchNorm_2")
+    return lv.finish(model)
+
+
+def load_clip(model, variables: Mapping):
+    """Fill a :class:`..models.clip_vit.ClipViT` from flax variables.
+
+    ``class_token``, ``pos_embed`` and ``proj`` map by name; in each
+    ``block_{i}`` flax counts names per type in creation order:
+    ``LayerNorm_0``, ``MHA_0`` (``Dense_0`` qkv, ``Dense_1`` out),
+    ``LayerNorm_1``, then ``Dense_0`` (fc) and ``Dense_1`` (proj)."""
+    lv = _Leaves(variables)
+    lv.conv("patch_embed", "patch_embed")
+    for name in ("class_token", "pos_embed", "proj"):
+        lv.put(name, lv.take(f"params/{name}"))
+    lv.gn("ln_pre", "ln_pre")
+    for i in range(len(model.blocks)):
+        p, scope = f"blocks.{i}", f"block_{i}"
+        lv.gn(f"{p}.ln1", f"{scope}/LayerNorm_0")
+        lv.dense(f"{p}.attn.qkv", f"{scope}/MHA_0/Dense_0")
+        lv.dense(f"{p}.attn.out", f"{scope}/MHA_0/Dense_1")
+        lv.gn(f"{p}.ln2", f"{scope}/LayerNorm_1")
+        lv.dense(f"{p}.fc", f"{scope}/Dense_0")
+        lv.dense(f"{p}.proj", f"{scope}/Dense_1")
+    lv.gn("ln_post", "ln_post")
     return lv.finish(model)
 
 

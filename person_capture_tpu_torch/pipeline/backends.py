@@ -6,6 +6,8 @@ JAX package's fused program (I420 wire → BGR → letterbox → SCRFD → 5-pt
 align → ArcFace → quality), run as torch ops on the configured device, and
 of its combined face+person step with :class:`YoloPersonBackend` (one
 upload, one chain of ops, one packed download per batch).
+:class:`ClipReidBackend` embeds person crops with the CLIP ViT tower (the
+ReID match modes, and the curator's scene features).
 
 Outputs (host numpy, fixed shapes):
   boxes ``[B, F, 4]`` xyxy in *reader frame coords*, kps ``[B, F, 5, 2]``,
@@ -137,9 +139,12 @@ class ScrfdArcFaceBackend:
     warp → ArcFace → chip quality → one packed ``[B, F, 17+D]`` array.
 
     Same constructor and ``extract_batch`` / ``submit_batch`` contract as
-    the JAX package's ``ScrfdArcFaceBackend``. Variants this port does not
-    carry yet (ONNX checkpoints, YOLOv8-face, the CLIP-face fallback, host
-    alignment) raise ``ValueError``.
+    the JAX package's ``ScrfdArcFaceBackend``: a ``YoloConfig`` with a
+    5-point keypoint head as ``scrfd_cfg`` selects the YOLOv8-face
+    detector, ``use_arcface=False`` embeds the chips with a CLIP tower
+    (``clip_face_cfg``, ViT-L-14 unless given; random init unless
+    ``clip_face_weights``). Variants this port does not carry yet (ONNX
+    checkpoints, host alignment) raise ``ValueError``.
     """
 
     def __init__(self, scrfd_cfg=None, arcface_cfg=None, det_size: int = 640,
@@ -151,18 +156,14 @@ class ScrfdArcFaceBackend:
                  clip_face_weights=None, embed_slots: int = 0,
                  device=None):
         from ..models import arcface as AF
+        from ..models import clip_vit as CV
         from ..models import scrfd as SD
-        from ..models.bridge import load_arcface, load_scrfd
+        from ..models import yolov8 as YV
+        from ..models.bridge import (load_arcface, load_clip, load_scrfd,
+                                     load_yolov8)
 
         scrfd_cfg = scrfd_cfg or SD.SCRFD_2_5G
         arcface_cfg = arcface_cfg or AF.W600K_R50
-        if not isinstance(scrfd_cfg, SD.SCRFDConfig):
-            raise ValueError(f"face detector {getattr(scrfd_cfg, 'name', '')!r}"
-                             " is not ported to torch yet; use "
-                             "--face-model scrfd_2.5g")
-        if not use_arcface:
-            raise ValueError("the CLIP-face embedder is not ported to torch "
-                             "yet; set use_arcface=true")
         if host_align:
             raise ValueError("host_align is not ported to torch yet; the "
                              "fused on-device warp is the default")
@@ -170,10 +171,9 @@ class ScrfdArcFaceBackend:
             if isinstance(w, str):
                 raise ValueError(f"ONNX checkpoint {w!r} is not supported by "
                                  "the torch port; use .npz weights")
-        SD.check_det_size(scrfd_cfg, int(det_size))
         self.device = torch.device(device or "cuda")
         self.dtype = dtype or torch.bfloat16
-        self.use_arcface = True
+        self.use_arcface = bool(use_arcface)
         self.embed_slots = int(embed_slots) if embed_slots else 0
         self.det_size = int(det_size)
         self.score_thresh = float(score_thresh)
@@ -183,18 +183,38 @@ class ScrfdArcFaceBackend:
         self.host_align = False
         self.transfer_format = transfer_format
 
-        scrfd = SD.SCRFD(scrfd_cfg).eval()
-        arc = AF.IResNet(arcface_cfg).eval()
+        if isinstance(scrfd_cfg, YV.YoloConfig):
+            # YOLOv8-face: the same output contract as SCRFD
+            YV.check_det_size(scrfd_cfg, self.det_size)
+            det, load_det = YV.YoloV8(scrfd_cfg), load_yolov8
+            self._detect = YV.detect_faces_yolo
+        else:
+            SD.check_det_size(scrfd_cfg, self.det_size)
+            det, load_det = SD.SCRFD(scrfd_cfg), load_scrfd
+            self._detect = SD.detect_faces
         if scrfd_weights is None:
-            _random_init(scrfd, seed)
+            _random_init(det, seed)
         else:
-            load_scrfd(scrfd, scrfd_weights)
-        if arcface_weights is None:
-            _random_init(arc, seed + 1)
+            load_det(det, scrfd_weights)
+        self.scrfd_model = det.eval().to(device=self.device, dtype=self.dtype)
+        self.arcface_model = self.clip_model = None
+        if self.use_arcface:
+            arc = AF.IResNet(arcface_cfg).eval()
+            if arcface_weights is None:
+                _random_init(arc, seed + 1)
+            else:
+                load_arcface(arc, arcface_weights)
+            self.arcface_model = arc.to(device=self.device, dtype=self.dtype)
         else:
-            load_arcface(arc, arcface_weights)
-        self.scrfd_model = scrfd.to(device=self.device, dtype=self.dtype)
-        self.arcface_model = arc.to(device=self.device, dtype=self.dtype)
+            # identity embedding by a CLIP image tower when ArcFace is off
+            clip_cfg = clip_face_cfg or CV.VIT_L_14
+            clip = CV.ClipViT(clip_cfg).eval()
+            if clip_face_weights is None:
+                CV.random_init(clip, torch.Generator().manual_seed(seed + 1))
+            else:
+                load_clip(clip, clip_face_weights)
+            self.clip_model = clip.to(device=self.device, dtype=self.dtype)
+            self.embed_dim = clip_cfg.embed_dim
 
     # ---- device program -------------------------------------------------
     def _convert(self, wire: torch.Tensor) -> torch.Tensor:
@@ -209,7 +229,7 @@ class ScrfdArcFaceBackend:
     @torch.inference_mode()
     def _fused_bgr(self, frames: torch.Tensor) -> torch.Tensor:
         from ..models.arcface import encode_chips
-        from ..models.scrfd import detect_faces
+        from ..models.clip_vit import encode_images
         from ..ops.align import align_chips
         from ..ops.preprocess import letterbox_topleft
         from ..ops.quality import chip_quality
@@ -218,14 +238,18 @@ class ScrfdArcFaceBackend:
         padded, scale = letterbox_topleft(frames, self.det_size)
         scales = torch.full((b,), scale, dtype=torch.float32,
                             device=frames.device)
-        det = detect_faces(self.scrfd_model, padded, scales,
+        det = self._detect(self.scrfd_model, padded, scales,
                            self.score_thresh, self.max_faces)
         mask = det["mask"]
         k = min(self.embed_slots or self.max_faces, self.max_faces)
         chips = align_chips(frames, det["kps"][:, :k], mask[:, :k])
         flat = chips.reshape(b * k, *chips.shape[2:])
-        feats = encode_chips(self.arcface_model, flat,
-                             flip_tta=self.flip_tta).reshape(b, k, -1)
+        if self.use_arcface:
+            feats = encode_chips(self.arcface_model, flat,
+                                 flip_tta=self.flip_tta)
+        else:
+            feats = encode_images(self.clip_model, flat)
+        feats = feats.reshape(b, k, -1)
         quality = chip_quality(flat).reshape(b, k)
         if k < self.max_faces:
             pad = self.max_faces - k
@@ -457,3 +481,68 @@ class YoloPersonBackend:
             return host
 
         return fetch
+
+
+class ClipReidBackend:
+    """CLIP ViT ReID embedding (torch). ``extract(crops)`` resizes each crop
+    on the host as the open_clip preprocess does (cv2 bicubic of the
+    shortest side to the tower's size, then a centre crop), pads each chunk
+    to ``batch`` by repeating its last crop, and returns ``[N, D]`` float32
+    L2-normalized embeddings.
+
+    Same constructor and ``extract`` contract as the JAX package's
+    ``ClipReidBackend``: ViT-L-14 unless ``cfg`` is given, bf16 unless
+    ``dtype`` is given (whatever the run's compute dtype), random init from
+    a seeded generator unless ``weights``.
+    """
+
+    def __init__(self, cfg=None, batch: int = 16, dtype=None, seed: int = 0,
+                 weights=None, device=None):
+        from ..models import clip_vit as CV
+        from ..models.bridge import load_clip
+
+        cfg = cfg or CV.VIT_L_14
+        self.device = torch.device(device or "cuda")
+        self.dtype = dtype or torch.bfloat16
+        self.batch = int(batch)
+        self.embed_dim = cfg.embed_dim
+        model = CV.ClipViT(cfg).eval()
+        if weights is None:
+            CV.random_init(model, torch.Generator().manual_seed(int(seed)))
+        else:
+            load_clip(model, weights)
+        self.model = model.to(device=self.device, dtype=self.dtype)
+        self._size = cfg.image_size
+
+    def _preprocess(self, c: np.ndarray) -> np.ndarray:
+        import cv2
+
+        s = self._size
+        h, w = c.shape[:2]
+        if (h, w) == (s, s):
+            return c
+        scale = s / min(h, w)
+        nw, nh = max(s, int(w * scale)), max(s, int(h * scale))
+        r = cv2.resize(c, (nw, nh), interpolation=cv2.INTER_CUBIC)
+        y0 = int(round((nh - s) / 2.0))
+        x0 = int(round((nw - s) / 2.0))
+        return r[y0:y0 + s, x0:x0 + s]
+
+    def extract(self, crops) -> np.ndarray:
+        """crops: list of HxWx3 BGR arrays → [N, D] float32 normalized."""
+        from ..models.clip_vit import encode_images
+
+        if not len(crops):
+            return np.zeros((0, self.embed_dim), np.float32)
+        resized = [self._preprocess(c) for c in crops]
+        out = []
+        for i in range(0, len(resized), self.batch):
+            chunk = resized[i:i + self.batch]
+            n = len(chunk)
+            chunk += [chunk[-1]] * (self.batch - n)
+            t = torch.from_numpy(np.stack(chunk).astype(np.float32))
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            emb = encode_images(self.model, t)
+            out.append(start_download(emb)()[:n])
+        return np.concatenate(out, 0)

@@ -237,3 +237,103 @@ def test_combined_program_matches_separate_programs(cuda):
                                    atol=0.5)
     assert person_a["mask"][:13:2].any(axis=1).all()
     assert face_a["mask"].any()
+
+
+# --- ReID and curation on the card ------------------------------------------
+
+def _cli_run(d, planes, device, flags=(), sets=()):
+    """The port's CLI on :func:`_default_fixture` (``flags``/``sets`` added
+    to the defaults); on the CPU the person detector and the ReID tower run
+    in fp32 like the rest. Returns the hit frames and the output dir."""
+    from person_capture_tpu_torch import main as M
+    from person_capture_tpu_torch.hdr.exporter import ArrayP010Source
+
+    out = d / f"{device}{'_'.join(flags)}"
+    argv = ["--video", str(d / "vid.mp4"), "--ref", str(d / "ref.png"),
+            "--out", str(out), "--batch", "8", "--det-size", "320",
+            "--prescan", "--device", device, *flags,
+            "--set", "prescan_cache_mode=off"]
+    for s in sets:
+        argv += ["--set", s]
+    if device == "cpu":
+        argv += ["--compute-dtype", "float32"]
+    ap = M.build_parser()
+    args = ap.parse_args(argv)
+    cfg = M.build_config(args, ap)
+    runtime = M.build_runtime(cfg, args, ap)
+    if device == "cpu":
+        for key in ("person", "reid"):
+            if runtime[key] is not None:
+                runtime[key].model.float()
+    eng = M.make_engine(cfg, runtime, status=lambda *a, **k: None)
+    eng.hdr_source_factory = lambda *_: ArrayP010Source(planes, 640, 480)
+    res = eng.run()
+    assert res.ok, res.error
+    return sorted(h.frame for h in res.mainpass.hits), out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["clip_reid_s", "ViT-L-14"])
+def test_reid_tower_bf16_matches_fp32(cuda, name):
+    """The ReID tower's bf16 default against fp32 on the card, on 16
+    person-sized crops of mixed aspect: cosine ≥ 0.99 per crop (bundled
+    weights for clip_reid_s, a seeded random init for ViT-L-14)."""
+    import numpy as np
+
+    from person_capture_tpu_torch.main import resolve_reid
+    from person_capture_tpu_torch.models import clip_vit as CV
+    from person_capture_tpu_torch.pipeline.backends import ClipReidBackend
+    from person_capture_tpu_torch.video.synthetic import (FacePlacement,
+                                                          draw_person)
+
+    cfg, w = (resolve_reid(name, "auto") if name == "clip_reid_s"
+              else (CV.VIT_L_14, None))
+    rng = np.random.default_rng(0)
+    crops = []
+    for i in range(16):
+        h, wd = int(rng.integers(120, 400)), int(rng.integers(60, 200))
+        c = rng.integers(30, 90, (h, wd, 3)).astype(np.uint8)
+        s = wd // 3
+        draw_person(c, FacePlacement(i, i % 3, (wd // 2 - s // 2, 10,
+                                                wd // 2 + s // 2, 10 + s)))
+        crops.append(c)
+    half = ClipReidBackend(cfg=cfg, weights=w)
+    full = ClipReidBackend(cfg=cfg, weights=w, dtype=torch.float32)
+    assert half.dtype == torch.bfloat16 and half.device.type == "cuda"
+    cos = (half.extract(crops) * full.extract(crops)).sum(-1)
+    print(name, "bf16 vs fp32 cosine", cos.min(), cos.mean())
+    assert cos.min() >= 0.99
+
+
+@pytest.mark.cuda
+def test_reid_either_run_on_the_card(cuda, tmp_path, monkeypatch):
+    """``--match-mode either`` in bf16 on the card, held by decisions to the
+    same run in fp32 on the CPU: the same hit frames."""
+    monkeypatch.setenv("PERSON_CAPTURE_FORCE_HDR", "1")
+    truth, planes = _default_fixture(tmp_path)
+    flags = ("--match-mode", "either")
+    hits, _ = _cli_run(tmp_path, planes, "cuda", flags)
+    cpu_hits, _ = _cli_run(tmp_path, planes, "cpu", flags)
+    assert hits and all(any(s <= f <= e for s, e in truth) for f in hits)
+    assert hits == cpu_hits
+
+
+@pytest.mark.cuda
+def test_curation_run_on_the_card(cuda, tmp_path, monkeypatch):
+    """The CLI defaults with curation on, on the card, against the same run
+    in fp32 on the CPU: the same curated set, or one image different (the
+    bf16 face distances and quality scores sit near the gates and ties)."""
+    import os
+
+    monkeypatch.setenv("PERSON_CAPTURE_FORCE_HDR", "1")
+    truth, planes = _default_fixture(tmp_path)
+    _, out = _cli_run(tmp_path, planes, "cuda")
+    _, cpu_out = _cli_run(tmp_path, planes, "cpu")
+
+    def picked(o):
+        return {f for f in os.listdir(o / "dataset_out")
+                if f.endswith((".png", ".jpg"))}
+
+    got, want = picked(out), picked(cpu_out)
+    print("card only:", sorted(got - want), "CPU only:", sorted(want - got))
+    assert got and len(got ^ want) <= 2 and abs(len(got) - len(want)) <= 1

@@ -53,6 +53,30 @@ from person_capture_tpu_torch.kernels.colormatch import color_match_bgr
 from person_capture_tpu_torch.kernels.cleanup import despeckle_bgr
 img = torch.from_numpy(frames[0])
 assert despeckle_bgr(color_match_bgr(img, img[::2, ::2]))[0].shape == img.shape
+import os, tempfile, cv2
+from person_capture_tpu_torch.pipeline.backends import ClipReidBackend
+from person_capture_tpu_torch.models import clip_vit as CV
+from person_capture_tpu_torch.core.bank import RefBank
+from person_capture_tpu_torch.core.hashing import phash_bits_batch
+from person_capture_tpu_torch import native
+from person_capture_tpu_torch.curator import Curator
+rb = ClipReidBackend(CV.TINY, batch=4, dtype=torch.float32, device="cpu")
+assert rb.extract([frames[0], frames[1][:20]]).shape == (2, 16)
+fb = ScrfdArcFaceBackend(YV.TINY_FACE, AF.TINY, det_size=64, max_faces=4,
+                         use_arcface=False, clip_face_cfg=CV.TINY,
+                         dtype=torch.float32, device="cpu")
+assert fb.extract_batch(frames, np.ones(2, bool))["feats"].shape == (2, 4, 16)
+gray = torch.from_numpy(frames[:, :32, :32, 0].astype(np.float32))
+assert phash_bits_batch(gray).shape == (2, 64)
+assert native.phash64_batch(gray.numpy()).shape == (2,)
+with tempfile.TemporaryDirectory() as d:
+    for i in range(3):
+        cv2.imwrite(os.path.join(d, f"f{i:08d}.jpg"), frames[i & 1])
+    bank = RefBank(cap=4)
+    bank.seed([np.ones(16, np.float32)])
+    res = Curator(fb, bank, clip_backend=rb, batch=2, canvas=64).run(
+        d, os.path.join(d, "out"), assume_identity=True)
+    assert res["metrics"]["pool"] == 3
 
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)

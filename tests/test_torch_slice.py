@@ -199,21 +199,7 @@ def test_defaults_match_jax_pipeline(body_fixture, tmp_path, monkeypatch):
         assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
 
 
-@pytest.mark.parametrize("sets,extra,setting", [
-    (["curate_enable=true"], [], "curate_enable=false"),
-    ([], ["--match-mode", "either"], "--match-mode face_only"),
-    (["compose_detect_person_for_face=true"], ["--yolo", "PT_FILE"],
-     ".npz"),
-    (["use_arcface=false"], [], "use_arcface=true"),
-    ([], ["--match-mode", "both"], "--match-mode face_only"),
-    ([], ["--mesh", "data:2"], "--mesh"),
-    ([], ["--face-model", "yolov8n-face"], "--face-model scrfd_2.5g"),
-    ([], ["--scrfd-weights", "det.onnx"], "flax .npz"),
-])
-def test_unported_branches_raise_value_error(tmp_path, sets, extra, setting):
-    """Every branch of the runtime the slice does not port is refused up
-    front with the setting that avoids it — never built smaller in
-    silence."""
+def _parsed(tmp_path, sets, extra):
     pt = tmp_path / "x.pt"
     pt.write_bytes(b"")
     argv = _argv(tmp_path, tmp_path / "out") + [
@@ -222,7 +208,60 @@ def test_unported_branches_raise_value_error(tmp_path, sets, extra, setting):
         argv += ["--set", s]
     ap = TM.build_parser()
     args = ap.parse_args(argv)
-    cfg = TM.build_config(args, ap)
+    return ap, args, TM.build_config(args, ap)
+
+
+@pytest.mark.parametrize("sets,extra,setting", [
+    (["compose_detect_person_for_face=true"], ["--yolo", "PT_FILE"],
+     ".npz"),
+    ([], ["--match-mode", "either", "--reid-weights", "PT_FILE"], ".npz"),
+    ([], ["--mesh", "data:2"], "--mesh"),
+    ([], ["--scrfd-weights", "det.onnx"], "flax .npz"),
+])
+def test_unported_branches_raise_value_error(tmp_path, sets, extra, setting):
+    """Every branch of the runtime the port does not carry is refused up
+    front with the setting that avoids it — never built smaller in
+    silence."""
+    ap, args, cfg = _parsed(tmp_path, sets, extra)
     with pytest.raises(ValueError, match="not ported") as err:
         TM.build_runtime(cfg, args, ap)
     assert setting in str(err.value)
+
+
+@pytest.mark.parametrize("sets,extra", [
+    (["curate_enable=true"], []),
+    ([], ["--match-mode", "either"]),
+    (["use_arcface=false", "clip_face_backbone=clip_tiny"], []),
+    ([], ["--match-mode", "both"]),
+    ([], ["--face-model", "yolov8n-face"]),
+])
+def test_ported_branches_build(tmp_path, sets, extra):
+    """The branches the earlier slices refused now build the backends the
+    JAX runtime builds for them."""
+    from person_capture_tpu_torch.models import clip_vit as TC
+    from person_capture_tpu_torch.models import yolov8 as TY
+    from person_capture_tpu_torch.pipeline import backends as TB
+
+    ap, args, cfg = _parsed(tmp_path, sets, extra)
+    rt = TM.build_runtime(cfg, args, ap)
+    face = rt["inner_face"]
+    assert isinstance(face, TB.ScrfdArcFaceBackend)
+    assert face.device.type == "cpu" and face.dtype == torch.float32
+    if args.match_mode != "face_only":
+        assert isinstance(rt["reid"], TB.ClipReidBackend)
+        assert rt["reid"].embed_dim == TC.REID_S.embed_dim   # bundled
+        assert isinstance(rt["person"], TB.YoloPersonBackend)
+        assert cfg.disable_reid is False
+    else:
+        assert rt["reid"] is None
+    if not cfg.use_arcface:
+        assert face.clip_model is not None and face.arcface_model is None
+        assert face.embed_dim == TC.TINY.embed_dim
+        # the full-frame rescue embeds in the primary's space
+        assert rt["fullframe"].use_arcface is False
+        assert rt["fullframe"].embed_dim == face.embed_dim
+    if "yolov8n-face" in extra:
+        assert rt["face_cfg"] is TY.YOLOV8N_FACE
+        assert isinstance(face.scrfd_model, TY.YoloV8)
+    if cfg.curate_enable:
+        assert rt["person"] is None and rt["reid"] is None
