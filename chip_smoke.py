@@ -67,13 +67,39 @@ non-zero without printing a result:
               (bf16 and fp32) and clip_reid_s, in turns;
 10. yolo_face — ``--face-model yolov8n-face`` (bundled weights, the
               ±45/±135° probes on) on phase 4's fixture, curation off: hits
-              in the truth spans, every span hit.
+              in the truth spans, every span hit;
+11. diag    — phase 4's fixture and settings with ``--set
+              hdr_speckle_diag=true``: one ``speckle_diag.json`` with 5
+              variants per still, at least 6 fused launches per still (the
+              still and its 5 variant renders), and the first still's
+              variant renders (its PNGs and statistics) against the plain
+              render of the same crop on the CPU, ≤ 1 LSB in at most
+              ``DIFFER_LIMIT`` of the pixels;
+12. onnx    — the port's ``tools/onnx_export`` writes SCRFD-2.5G (det 640)
+              and ArcFace from the bundled weights; phase 4's fixture with
+              ``--scrfd-weights x.onnx --arcface-weights y.onnx`` and the
+              full-frame rescue off (the graph's shapes are det 640's): in
+              fp32
+              the hit frames of the native ``.npz`` run in fp32, in bf16 hits
+              in the truth spans and every span hit; then the 64-frame
+              face step, ONNX against native (bf16), in turns;
+13. sweep   — ``python -m person_capture_tpu_torch.sweep`` at the CLI
+              defaults (curation on) over 3 videos (phase 8's fixture and
+              two of the same generator with other seeds and spans, HDR
+              stills from ``_P010FromVideo`` as in phases 4-10),
+              ``--yolo`` a ``.pt`` state dict written from the bundled
+              YOLOv8n weights and ``--arcface-weights`` a converted ``src/``
+              dump of the bundled ArcFace: the runtime built once, video
+              1's hits those of phase 8, every hit in its video's truth
+              spans, processed 3 and failed 0, then a second invocation
+              resumes all 3; seconds per video; ``doctor --json`` reports
+              the card.
 
-Phases 8 to 10 reach no hand-written kernel beyond the tone-map: the CLIP
-tower, the curator's pHash and MMR are torch ops and host code, as they are
-XLA ops and host code in the JAX package. Each phase's tone-map launches
-are counted from 0 just before its run and printed in the ``kernels``
-line.
+Phases 8 to 13 reach no hand-written kernel beyond the tone-map: the CLIP
+tower, the curator's pHash and MMR, the ONNX interpreter, the loaders, the
+sweep and the doctor are torch ops and host code, as they are XLA ops and
+host code in the JAX package. Each phase's tone-map launches are counted
+from 0 just before its run and printed in the ``kernels`` line.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -429,9 +455,10 @@ class _P010FromVideo:
             self._cap.release()
 
 
-def make_fixture(work: str, **body):
+def make_fixture(work: str, seed: int = 1, segments=TRUTH_SEGMENTS, **body):
     """The verify recipe's fixture, re-coded as PQ: (video, ref, truth).
-    ``body``: ``generate_video``'s ``draw_body`` and ``face_px``."""
+    ``body``: ``generate_video``'s ``draw_body`` and ``face_px``; another
+    ``seed`` and ``segments`` give another video of the same kind."""
     import cv2
     import numpy as np
 
@@ -444,8 +471,8 @@ def make_fixture(work: str, **body):
     sdr = os.path.join(work, "sdr.mp4")
     vid = os.path.join(work, "vid.mp4")
     sv = generate_video(sdr, width=640, height=480, fps=30,
-                        total_frames=150, segments=TRUTH_SEGMENTS,
-                        moving=True, seed=1, **body)
+                        total_frames=150, segments=list(segments),
+                        moving=True, seed=seed, **body)
     write_pq_video(sdr, vid)
     ref = np.full((200, 200, 3), 60, np.uint8)
     draw_face(ref, FacePlacement(0, 0, (40, 40, 160, 160)))
@@ -883,7 +910,7 @@ def check_curation(out: str) -> dict:
     return dict(metrics, crops=len(crops), selected_files=picked)
 
 
-def phase_curate(work: str, fixture) -> dict:
+def phase_curate(work: str, fixture) -> tuple:
     """Phase 8: the CLI defaults whole — phase 7's fixture and settings with
     curation on."""
     seen = {}
@@ -905,7 +932,7 @@ def phase_curate(work: str, fixture) -> dict:
          describe_batches=seen["describe_batches"],
          launches=run["launches"], setup_seconds=run["setup_seconds"],
          seconds=run["seconds"], stages=run["engine"]._timer.summary())
-    return run["launches"]
+    return run["launches"], run["hit_frames"]
 
 
 def vit_flops(cfg, n: int) -> float:
@@ -1039,6 +1066,280 @@ def phase_yolo_face(work: str, fixture) -> dict:
     return run["launches"]
 
 
+def phase_diag(work: str, fixture) -> dict:
+    """Phase 11: phase 4's fixture and settings with ``--set
+    hdr_speckle_diag=true``: one ``speckle_diag.json`` (5 variants) per
+    still, and the first still's variant renders against the plain render
+    of the same crop (the CPU chain), ≤ 1 LSB in at most ``DIFFER_LIMIT``
+    of the pixels."""
+    import cv2
+    import torch
+
+    from person_capture_tpu_torch.hdr.diagnostics import (DIAG_VARIANTS,
+                                                          plane_stats)
+    from person_capture_tpu_torch.hdr.stills import (HdrExportParams,
+                                                     render_sdr_crop_from_p010)
+    from person_capture_tpu_torch.video.probe import color_range_full
+
+    run = run_cli(work, "diag", fixture, SLICE_SETS + (
+        "hdr_speckle_diag=true",))
+    rows, launches = run["rows"], run["launches"]
+    diag = os.path.join(run["out"], "hdr_speckle_diag")
+    reports = {}
+    for r in rows:
+        base = os.path.splitext(r["crop_path"])[0]
+        path = os.path.join(diag, base, "speckle_diag.json")
+        require(os.path.isfile(path), f"no speckle report for {base}")
+        with open(path) as fh:
+            reports[base] = json.load(fh)
+        require(len(reports[base]["variants"]) == 5,
+                f"{base}: {len(reports[base]['variants'])} variants, not 5")
+    require(launches["hdr_to_sdr_bgr"] >= 6 * len(rows),
+            f"{launches['hdr_to_sdr_bgr']} fused launches for {len(rows)} "
+            f"stills with 5 diagnostic renders each")
+
+    first = os.path.splitext(rows[0]["crop_path"])[0]
+    crop = reports[first]["crop"]
+    src = _P010FromVideo(fixture[0])
+    y, uv = src.get_planes(int(rows[0]["frame"]))
+    src.release()
+    base_params = HdrExportParams.from_cfg(run["cfg"], "pq",
+                                           color_range_full(fixture[0]))
+    checked = {}
+    for var in DIAG_VARIANTS:
+        p = HdrExportParams(**{**base_params.__dict__,
+                               "tonemap": var["tonemap"],
+                               "full_range": var["full_range"],
+                               "color_match": False, "speckle_cleanup": False,
+                               "dither": False, "device": "cpu"})
+        want = render_sdr_crop_from_p010(y, uv, crop, p)
+        got = cv2.imread(os.path.join(diag, first,
+                                      f"diag_{var['name']}.png"))
+        require(got is not None and got.shape == want.shape,
+                f"diag_{var['name']}.png missing or of another shape")
+        lsb, share = differ(torch.from_numpy(got), torch.from_numpy(want))
+        require(lsb <= 1 and share <= DIFFER_LIMIT, f"{var['name']}: "
+                f"report render vs plain: {lsb} LSB, {share:.4%} differ")
+        stats = reports[first]["variants"][var["name"]]["stats"]
+        plain = plane_stats(want)
+        gap = max(abs(stats[c][k] - plain[c][k]) for c in plain
+                  for k in plain[c])
+        require(gap <= 1.0, f"{var['name']}: report statistics vs the plain "
+                f"render differ by {gap}")
+        checked[var["name"]] = dict(max_lsb=lsb, differing_share=share,
+                                    max_stat_gap=gap)
+    emit(phase="diag", hits=len(rows), stills=len(rows),
+         reports=len(reports), launches=launches,
+         launches_per_still=launches["hdr_to_sdr_bgr"] / len(rows),
+         first_still=first, crop=crop, first_vs_plain=checked,
+         speckle_pixels={k: v["speckle_pixels"] for k, v in
+                         reports[first]["variants"].items()},
+         diag_wall_s=reports[first]["wall_s"], seconds=run["seconds"])
+    return launches
+
+
+def export_onnx(work: str) -> tuple:
+    """SCRFD-2.5G at det 640 and the bundled ArcFace as ONNX graphs, written
+    by the port's exporter from the bundled weights."""
+    from person_capture_tpu_torch.tools import onnx_export
+
+    paths = []
+    for model in ("scrfd_2.5g", "arcface_synth"):
+        path = os.path.join(work, f"{model}.onnx")
+        require(onnx_export.main(["--model", model, "--out", path,
+                                  "--det-size", "640"]) == 0,
+                f"onnx_export of {model} failed")
+        paths.append(path)
+    return tuple(paths)
+
+
+def phase_onnx(work: str, fixture) -> dict:
+    """Phase 12: ONNX weights on phase 4's fixture at det 640. In fp32 the
+    same hit frames as the native ``.npz`` weights in fp32; in bf16 every
+    hit inside the truth spans and both spans hit; then the 64-frame step,
+    ONNX against native (bf16), in turns."""
+    import cv2
+    import numpy as np
+
+    from person_capture_tpu_torch.models.onnx_zoo import (OnnxArcFaceEncoder,
+                                                          OnnxScrfdDetector)
+
+    vid, ref_path, truth, native_runtime = fixture
+    scrfd, arcface = export_onnx(work)
+    onnx_flags = ("--scrfd-weights", scrfd, "--arcface-weights", arcface)
+    fp32 = ("--compute-dtype", "float32")
+    # the exported graph has the spatial shapes of det 640, so the
+    # full-frame rescue (det 1408) cannot run it: off in all three runs
+    sets = SLICE_SETS + ("face_fullframe_when_missed=false",)
+    native32 = run_cli(work, "native_fp32", fixture[:3], sets, flags=fp32)
+    onnx32 = run_cli(work, "onnx_fp32", fixture[:3], sets,
+                     flags=onnx_flags + fp32)
+    require(onnx32["hit_frames"] == native32["hit_frames"],
+            f"fp32 ONNX hits {onnx32['hit_frames']} != native "
+            f"{native32['hit_frames']}")
+    run = run_cli(work, "onnx", fixture[:3], sets, flags=onnx_flags)
+    face = run["runtime"]["inner_face"]
+    require(isinstance(face.scrfd_model, OnnxScrfdDetector)
+            and isinstance(face.arcface_model, OnnxArcFaceEncoder),
+            "the ONNX run did not build the ONNX adapters")
+
+    cap = cv2.VideoCapture(vid)
+    cap.set(cv2.CAP_PROP_POS_FRAMES, TRUTH_SEGMENTS[0][0])
+    frames = np.stack([cap.read()[1] for _ in range(64)])
+    cap.release()
+    valid = np.ones(64, bool)
+    idxs = np.arange(64) + TRUTH_SEGMENTS[0][0]
+    native = native_runtime["inner_face"]
+    step = in_turns({
+        "onnx_ms": lambda: face.submit_batch(frames, valid, idxs)(),
+        "native_ms": lambda: native.submit_batch(frames, valid, idxs)()},
+        timer=wall_ms)
+    emit(phase="onnx", onnx_files=[os.path.basename(p) for p in
+                                   (scrfd, arcface)],
+         fp32_hit_frames=onnx32["hit_frames"],
+         native_fp32_hit_frames=native32["hit_frames"],
+         bf16_hits=len(run["rows"]), bf16_hit_frames=run["hit_frames"],
+         truth_spans=truth, launches=run["launches"],
+         seconds={"onnx_bf16": run["seconds"], "onnx_fp32": onnx32["seconds"],
+                  "native_fp32": native32["seconds"]},
+         step_batch=64, step=step, stages=run["engine"]._timer.summary())
+    return run["launches"]
+
+
+# phase 13's corpus: video 1 is phase 8's; videos 2 and 3 come from the
+# same generator with these seeds and truth spans
+SWEEP_VIDEOS = ((7, [(10, 50, 0), (96, 130, 0)]),
+                (11, [(30, 70, 0), (100, 140, 0)]))
+
+
+def phase_sweep(work: str, body_fixture, curate_hits) -> dict:
+    """Phase 13: the port's sweep at the CLI defaults (curation on) over 3
+    videos — phase 8's fixture and two more of the same generator, PQ-coded
+    with HDR stills from ``_P010FromVideo`` as in phases 4-10 — with
+    ``--yolo`` a ``.pt`` state dict written from the bundled YOLOv8n weights
+    and ``--arcface-weights`` a converted ``src/`` dump of the bundled
+    ArcFace; then the same sweep again (3 resumed), and ``doctor --json``.
+    (The fixture's SDR source is another input: a CPU run of it saves 28
+    crops where the PQ-coded video, analysed through the tone-mapped
+    reader, saves phase 8's 11.)"""
+    import csv
+
+    import torch
+
+    from person_capture_tpu_torch import main as M
+    from person_capture_tpu_torch import sweep
+    from person_capture_tpu_torch.models import arcface as AF
+    from person_capture_tpu_torch.models import yolov8 as YV
+    from person_capture_tpu_torch.models.loaders import torch_state_dict
+    from person_capture_tpu_torch.models.zoo import resolve_weights
+    from person_capture_tpu_torch.tools import convert_weights
+
+    root = os.path.join(work, "sweep")
+    corpus = os.path.join(root, "corpus")
+    os.makedirs(corpus, exist_ok=True)
+    truths = {"v1.mp4": body_fixture[2]}
+    os.symlink(os.path.abspath(body_fixture[0]),
+               os.path.join(corpus, "v1.mp4"))
+    for i, (seed, segments) in enumerate(SWEEP_VIDEOS, start=2):
+        vid, _, truth = make_fixture(os.path.join(root, f"gen{i}"), seed=seed,
+                                     segments=segments, draw_body=True,
+                                     face_px=DEFAULT_FACE_PX)
+        os.symlink(os.path.abspath(vid), os.path.join(corpus, f"v{i}.mp4"))
+        truths[f"v{i}.mp4"] = truth
+
+    yolo_pt = os.path.join(root, "yolov8n.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in torch_state_dict(
+        "yolov8", resolve_weights("auto", "yolov8n"), YV.YOLOV8N).items()},
+        yolo_pt)
+    arc_pt = os.path.join(root, "arcface_synth.pt")
+    torch.save({k: torch.from_numpy(v) for k, v in torch_state_dict(
+        "arcface", resolve_weights("auto", "arcface_synth"),
+        AF.SYNTH_R18).items()}, arc_pt)
+    arc_src = os.path.join(root, "arcface_synth_src.npz")
+    require(convert_weights.main(["--src", arc_pt, "--kind", "arcface",
+                                  "--out", arc_src]) == 0,
+            "convert_weights failed")
+
+    out = os.path.join(root, "out")
+    argv = ["--videos", corpus, "--ref", body_fixture[1], "--out", out,
+            "--prescan", "--set", "prescan_cache_mode=off",
+            "--set", "tpu_profile=true", "--yolo", yolo_pt,
+            "--arcface-weights", arc_src]
+    builds = []
+    build, make = M.build_runtime, M.make_engine
+
+    def counted(*a, **k):
+        builds.append(1)
+        return build(*a, **k)
+
+    def with_p010(*a, **k):
+        # the HDR planes of phases 4-10, read from the fixture itself, so
+        # the run needs no ffmpeg
+        eng = make(*a, **k)
+        eng.hdr_source_factory = lambda video, w, h, fps: _P010FromVideo(
+            video)
+        return eng
+
+    def summary():
+        with open(os.path.join(out, "sweep_summary.json")) as fh:
+            return json.load(fh)
+
+    M.build_runtime, M.make_engine = counted, with_p010
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        rc = sweep.main(argv)
+        sweep_s = time.perf_counter() - t0
+        launches = read_launches()
+        first = summary()
+        again = sweep.main(argv)
+        resumed = summary()
+    finally:
+        M.build_runtime, M.make_engine = build, make
+    require(rc == 0 and again == 0, f"sweep exit codes {rc}, {again}")
+    require(len(builds) == 1, f"build_runtime called {len(builds)} times")
+    require(first["processed"] == 3 and first["failed"] == 0,
+            f"sweep: processed {first['processed']}, failed "
+            f"{first['failed']}")
+    require(resumed["resumed"] == 3 and resumed["processed"] == 3,
+            f"second sweep: {resumed['resumed']} resumed of "
+            f"{resumed['processed']}")
+    hits = {}
+    for name, truth in truths.items():
+        stem = os.path.splitext(name)[0]
+        with open(os.path.join(out, stem, "index.csv")) as fh:
+            frames = [int(r["frame"]) for r in csv.DictReader(fh)]
+        outside = [f for f in frames if not any(s <= f <= e
+                                                for s, e in truth)]
+        require(bool(frames) and not outside, f"{name}: hits {frames}, "
+                f"outside the truth spans {truth}: {outside}")
+        require(os.path.isdir(os.path.join(out, stem, "dataset_out")),
+                f"{name}: no dataset_out/ (curation)")
+        hits[name] = frames
+    require(hits["v1.mp4"] == curate_hits, f"video 1 hits {hits['v1.mp4']} "
+            f"!= phase 8's {curate_hits}")
+
+    doc = subprocess.run(
+        [sys.executable, "-m", "person_capture_tpu_torch.doctor", "--json",
+         "--skip-decode", "--cache-dir", os.path.join(root, "cache"),
+         "--sweep-root", out], capture_output=True, text=True, timeout=300,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    report = json.loads(doc.stdout)
+    device = report.get("device", {})
+    require(doc.returncode == 0 and device.get("ok")
+            and device.get("device") == torch.cuda.get_device_name(0),
+            f"doctor --json: rc {doc.returncode}, device {device}")
+    emit(phase="sweep", videos=len(truths), truth_spans=truths, hits=hits,
+         runtime_builds=len(builds), seconds=sweep_s,
+         seconds_per_video={r["video"]: r["wall_s"]
+                            for r in first["results"]},
+         summary={k: first[k] for k in ("corpus", "processed", "failed")},
+         resumed_on_second_run=resumed["resumed"],
+         launches=launches, doctor_device=device,
+         doctor_sweep=report.get("sweep"))
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -1060,9 +1361,13 @@ def main() -> int:
         phase_preview(work, fixture)
         planar_err, still = phase_main_path_shape(rows)
         defaults_launches, body_fixture = phase_defaults(work)
-        later = {"curate": phase_curate(work, body_fixture),
+        curate_launches, curate_hits = phase_curate(work, body_fixture)
+        later = {"curate": curate_launches,
                  "reid": phase_reid(work, body_fixture),
-                 "yolo_face": phase_yolo_face(work, fixture[:3])}
+                 "yolo_face": phase_yolo_face(work, fixture[:3]),
+                 "diag": phase_diag(work, fixture[:3]),
+                 "onnx": phase_onnx(work, fixture),
+                 "sweep": phase_sweep(work, body_fixture, curate_hits)}
     source = "person_capture_tpu_torch/csrc/tonemap.cu"
     replaces = "person_capture_tpu/kernels/hdr.py:217"
 

@@ -1,7 +1,6 @@
 """HDR still exporter: crop save-items rendered from the HDR source.
 
-Copied from ``person_capture_tpu/hdr/exporter.py``; the constructor refuses
-the speckle diagnostics, which the torch port does not have yet.
+Copied from ``person_capture_tpu/hdr/exporter.py``.
 
 Replaces the reference's per-export ffmpeg/WIC subprocess ladder
 (gui_app.py:12867 `_save_hdr_sdr_screencap`) with: seek the HDR source for
@@ -251,12 +250,6 @@ class HdrStillExporter:
                  archive_timeout_sec: float = 90.0,
                  archive_pix_fmt: str = "", archive_range: str = "",
                  display_compat: bool = False):
-        # refuse up front what the torch port does not have yet: a failure
-        # per still on the saver thread would only show as missing stills
-        if diag_dir:
-            raise ValueError("HDR speckle diagnostics are not ported to "
-                             "torch yet; run with --set hdr_speckle_diag="
-                             "false")
         self.source = source
         self.params = params
         self.out_format = (out_format or "png").lstrip(".").lower()

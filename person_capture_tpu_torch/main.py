@@ -3,11 +3,13 @@ driving the PyTorch/CUDA pipeline:
 
     python -m person_capture_tpu_torch.main --video V --ref R --out OUT
 
-Runs on the CUDA device unless ``--device cpu`` is given. Branches the port
-does not carry yet (mesh/multi-host, ONNX weights, ultralytics ``.pt`` YOLO
-and open_clip ``.pt`` ReID checkpoints) raise ``ValueError`` in
-:func:`build_runtime` naming the setting to change; nothing is silently
-left out.
+Runs on the CUDA device unless ``--device cpu`` is given. Weights load
+from the bundled or user flax ``.npz`` files, converted torch dumps
+(``tools/convert_weights.py``), ultralytics and open_clip ``.pt`` state
+dicts (``models/loaders.py``) and insightface ONNX graphs
+(``models/onnx_zoo.py``). The branches the port does not carry yet (the
+device mesh and multi-host) raise ``ValueError`` in :func:`build_runtime`
+naming the setting to change; nothing is silently left out.
 """
 
 from __future__ import annotations
@@ -50,11 +52,12 @@ def build_parser(require_video: bool = True) -> argparse.ArgumentParser:
     ap.add_argument("--face-det-conf", type=float, default=0.5,
                     help="face detector candidate threshold")
     ap.add_argument("--scrfd-weights", default="auto",
-                    help=".npz checkpoint | auto (bundled synthetic "
-                         "weights) | random")
+                    help=".npz | .onnx checkpoint | auto (bundled "
+                         "synthetic weights) | random")
     ap.add_argument("--arcface-weights", default="auto",
-                    help=".npz checkpoint | auto (bundled synthetic "
-                         "weights) | random")
+                    help=".npz (flax or converted torch) | .onnx "
+                         "checkpoint | auto (bundled synthetic weights) | "
+                         "random")
     ap.add_argument("--face-model", default="scrfd_2.5g")
     ap.add_argument("--arcface-model", default="auto",
                     help="w600k_r50 | glintr100 | arcface_synth | auto "
@@ -171,32 +174,63 @@ def resolve_device(cfg):
     return torch.device(name)
 
 
+def maybe_pin_platform(cfg) -> None:
+    """The JAX CLI pins its platform here; the port checks that the device
+    it was asked for exists (:func:`resolve_device`), before any backend
+    is built."""
+    resolve_device(cfg)
+
+
+def resolve_compile_cache_dir(cfg) -> str:
+    """Resolve ``cfg.tpu_compile_cache_dir`` to a directory or ''.
+
+    "auto" (the default) -> $XDG_CACHE_HOME/person_capture_tpu_torch (or
+    ~/.cache/...); ""/"off"/"none"/"0" -> disabled; anything else is an
+    explicit directory. ``doctor`` checks it; the port keeps no compiled
+    programs there (:func:`maybe_enable_compile_cache`)."""
+    d = str(getattr(cfg, "tpu_compile_cache_dir", "") or "").strip()
+    if d.lower() in ("", "off", "none", "0", "false"):
+        return ""
+    if d.lower() == "auto":
+        root = os.environ.get("XDG_CACHE_HOME",
+                              os.path.join(os.path.expanduser("~"),
+                                           ".cache"))
+        return os.path.join(root, "person_capture_tpu_torch")
+    return d
+
+
+def maybe_enable_compile_cache(cfg) -> None:
+    """No-op: eager torch compiles no programs to cache (the hand-written
+    kernels are built once per checkout into ``build/torch_kernels/``)."""
+
+
+def maybe_init_multihost(args, out_dir: str) -> str:
+    """The output root this process writes under. Multi-host is not ported:
+    :func:`check_ported` refuses it when the runtime is built."""
+    return out_dir
+
+
 def _unported(what: str, setting: str):
     return ValueError(f"{what} is not ported to torch yet; {setting}")
 
 
 def check_ported(cfg, args) -> None:
     """Refuse, up front, every branch of the JAX runtime this port does not
-    carry yet, naming the setting that avoids it. (HDR still stages are
-    refused where an HDR source is found: hdr/exporter.py.)"""
+    carry yet, naming the setting that avoids it."""
     if cfg.tpu_mesh:
         raise _unported("the device mesh", "drop --mesh")
     if args.multihost or args.coordinator:
         raise _unported("multi-host", "drop --multihost/--coordinator")
-    for flag, spec in (("--scrfd-weights", args.scrfd_weights),
-                       ("--arcface-weights", args.arcface_weights)):
-        if spec.lower().endswith(".onnx"):
-            raise _unported("ONNX weights", f"pass a flax .npz to {flag}")
 
 
 def resolve_yolo(yolo_model: str):
     """Resolve the person-detector spec to (yolo_cfg, weights).
 
-    Bundled synthetic-trained weights for known names; a user-supplied flax
-    ``.npz`` checkpoint loads through the zoo. An ultralytics ``.pt`` file
-    raises ``ValueError`` (its loader is not ported); a spec that resolves
-    to nothing raises ``FileNotFoundError`` — never a silent random-init
-    run."""
+    Bundled synthetic-trained weights for known names; a user-supplied
+    checkpoint path loads for real (ultralytics ``.pt`` via
+    models/loaders.load_yolov8_torch, flax .npz via the zoo). A spec that
+    resolves to nothing raises ``FileNotFoundError`` — never a silent
+    random-init run."""
     from .models import yolov8 as YV
     from .models.zoo import BUNDLED, resolve_weights
 
@@ -206,10 +240,13 @@ def resolve_yolo(yolo_model: str):
     yolo_cfg = YV.CONFIGS.get(yolo_name, YV.YOLOV8N)
     if os.path.isfile(yolo_spec):
         if yolo_spec.lower().endswith((".pt", ".pth")):
-            raise _unported(f"the ultralytics checkpoint loader "
-                            f"(--yolo {yolo_spec!r})",
-                            "pass a flax .npz checkpoint or a bundled "
-                            "name such as yolov8n to --yolo")
+            from .models.bridge import flax_variables
+            from .models.loaders import load_yolov8_torch
+            from .tools.convert_weights import torch_param_dict
+
+            return yolo_cfg, load_yolov8_torch(
+                flax_variables(YV.YoloV8(yolo_cfg)), yolo_cfg,
+                torch_param_dict(yolo_spec), strict=True)
         return yolo_cfg, resolve_weights(yolo_spec, yolo_name)
     if yolo_name not in BUNDLED:
         raise FileNotFoundError(
@@ -223,10 +260,11 @@ def resolve_reid(backbone: str, weights_spec: str = "auto"):
 
     "auto" takes the bundled synthetic-trained compact tower (the arch
     becomes ``clip_reid_s``, as arcface "auto" takes the bundled embedder);
-    "random" keeps the requested arch at random init; a flax ``.npz`` loads
-    the requested arch through the zoo. An open_clip ``.pt``/``.pth``/
-    ``.bin`` checkpoint raises ``ValueError`` (its loader is not ported);
-    any other spec that is not a file raises ``FileNotFoundError``."""
+    "random" keeps the requested arch at random init. An explicit
+    checkpoint loads the requested arch: open_clip torch state dicts
+    (``.pt``/``.pth``/``.bin``) via models/loaders.load_clip_torch, flax
+    ``.npz`` via the zoo. Any other spec that is not a file raises
+    ``FileNotFoundError``."""
     from .models import clip_vit as CV
     from .models.zoo import resolve_weights
 
@@ -236,10 +274,12 @@ def resolve_reid(backbone: str, weights_spec: str = "auto"):
         return cfg, None
     if os.path.isfile(spec):
         if spec.lower().endswith((".pt", ".pth", ".bin")):
-            raise _unported(f"the open_clip checkpoint loader "
-                            f"(--reid-weights {spec!r})",
-                            "pass a flax .npz checkpoint, auto or random to "
-                            "--reid-weights")
+            from .models.bridge import flax_variables
+            from .models.loaders import load_clip_torch
+            from .tools.convert_weights import torch_param_dict
+
+            return cfg, load_clip_torch(flax_variables(CV.ClipViT(cfg)), cfg,
+                                        torch_param_dict(spec))
         return cfg, resolve_weights(spec, cfg.name)
     if spec.lower() not in ("auto", ""):
         raise FileNotFoundError(
@@ -289,13 +329,21 @@ def build_runtime(cfg, args, ap) -> dict:
                           if bundled_weights_path("arcface_synth")
                           else "w600k_r50")
     arc_cfg = AF.CONFIGS.get(arc_model_name, AF.W600K_R50)
+    # an explicit checkpoint other than ONNX (a flax .npz or a converted
+    # torch dump) loads through models/loaders, as in the JAX runtime
     spec = args.arcface_weights.lower()
     if spec in ("auto", ""):
         arc_w = resolve_weights("auto", arc_model_name)
     elif spec in ("random", "none"):
         arc_w = None
-    else:
+    elif spec.endswith(".onnx"):
         arc_w = resolve_weights(args.arcface_weights, arc_model_name)
+    else:
+        from .models.bridge import flax_variables
+        from .models.loaders import load_checkpoint
+
+        arc_w = load_checkpoint(args.arcface_weights, "arcface",
+                                flax_variables(AF.IResNet(arc_cfg)), arc_cfg)
 
     # use_arcface off: a CLIP tower embeds the face chips, at random init
     # as in the JAX runtime, which passes no CLIP-face weights either

@@ -15,7 +15,8 @@ maps every leaf onto the torch modules of :mod:`.scrfd`, :mod:`.arcface`,
 
 It is strict both ways: a leaf the mapping does not consume raises, and so
 does a parameter or buffer of the module that no leaf fills
-(``load_state_dict(strict=True)``).
+(``load_state_dict(strict=True)``). :func:`flax_variables` runs the same
+walk backwards, from a module to flax variables.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from ..tools.weights import flatten_tree
+from ..tools.weights import flatten_tree, unflatten_tree
 
 
 class _Leaves:
@@ -35,37 +36,37 @@ class _Leaves:
         self.flat: Dict[str, np.ndarray] = flatten_tree(variables)
         self.sd: Dict[str, torch.Tensor] = {}
 
-    def take(self, path: str) -> np.ndarray:
+    def link(self, name: str, path: str, perm=None) -> None:
+        """Module tensor ``name`` ← flax leaf ``path``, its axes permuted by
+        ``perm`` (flax → torch layout)."""
         try:
-            return np.asarray(self.flat.pop(path), np.float32)
+            arr = np.asarray(self.flat.pop(path), np.float32)
         except KeyError:
             raise KeyError(f"checkpoint has no leaf {path!r}") from None
-
-    def put(self, name: str, arr: np.ndarray) -> None:
+        if perm is not None:
+            arr = arr.transpose(perm)
         self.sd[name] = torch.from_numpy(np.array(arr))  # a writable copy
 
     def conv(self, name: str, scope: str, bias: bool = False) -> None:
-        self.put(f"{name}.weight",
-                 self.take(f"params/{scope}/kernel").transpose(3, 2, 0, 1))
+        self.link(f"{name}.weight", f"params/{scope}/kernel", (3, 2, 0, 1))
         if bias:
-            self.put(f"{name}.bias", self.take(f"params/{scope}/bias"))
+            self.link(f"{name}.bias", f"params/{scope}/bias")
 
     def dense(self, name: str, scope: str) -> None:
-        self.put(f"{name}.weight", self.take(f"params/{scope}/kernel").T)
-        self.put(f"{name}.bias", self.take(f"params/{scope}/bias"))
+        self.link(f"{name}.weight", f"params/{scope}/kernel", (1, 0))
+        self.link(f"{name}.bias", f"params/{scope}/bias")
 
     def bn(self, name: str, scope: str) -> None:
-        self.put(f"{name}.weight", self.take(f"params/{scope}/scale"))
-        self.put(f"{name}.bias", self.take(f"params/{scope}/bias"))
-        self.put(f"{name}.running_mean", self.take(f"batch_stats/{scope}/mean"))
-        self.put(f"{name}.running_var", self.take(f"batch_stats/{scope}/var"))
+        self.gn(name, scope)
+        self.link(f"{name}.running_mean", f"batch_stats/{scope}/mean")
+        self.link(f"{name}.running_var", f"batch_stats/{scope}/var")
 
     def gn(self, name: str, scope: str) -> None:
-        self.put(f"{name}.weight", self.take(f"params/{scope}/scale"))
-        self.put(f"{name}.bias", self.take(f"params/{scope}/bias"))
+        self.link(f"{name}.weight", f"params/{scope}/scale")
+        self.link(f"{name}.bias", f"params/{scope}/bias")
 
     def prelu(self, name: str, scope: str) -> None:
-        self.put(f"{name}.alpha", self.take(f"params/{scope}/alpha"))
+        self.link(f"{name}.alpha", f"params/{scope}/alpha")
 
     def convbn(self, name: str, scope: str) -> None:
         self.conv(f"{name}.conv", f"{scope}/Conv_0")
@@ -85,9 +86,26 @@ class _Leaves:
         return module
 
 
-def load_scrfd(model, variables: Mapping):
-    """Fill a :class:`..models.scrfd.SCRFD` from flax variables."""
-    lv = _Leaves(variables)
+class _Export(_Leaves):
+    """The same walk run backwards: each tensor of a module becomes its
+    flax leaf (torch → flax layout), so :func:`flax_variables` names and
+    shapes exactly the leaves the matching ``load_*`` consumes."""
+
+    def __init__(self, module: torch.nn.Module):
+        self.sd = module.state_dict()
+        self.flat = {}
+
+    def link(self, name: str, path: str, perm=None) -> None:
+        arr = self.sd[name].detach().float().cpu().numpy()
+        self.flat[path] = arr if perm is None else \
+            arr.transpose(np.argsort(perm))
+
+    def finish(self, module: torch.nn.Module) -> Dict:
+        return unflatten_tree(self.flat)
+
+
+def _scrfd(lv: _Leaves, model):
+    """The walk over a :class:`..models.scrfd.SCRFD`'s tensors."""
     cfg = model.cfg
     lv.convbn("backbone.stem", "_Backbone_0/ConvBN_0")
     for i, blk in enumerate(model.backbone.blocks):
@@ -108,9 +126,8 @@ def load_scrfd(model, variables: Mapping):
     return lv.finish(model)
 
 
-def load_arcface(model, variables: Mapping):
-    """Fill a :class:`..models.arcface.IResNet` from flax variables."""
-    lv = _Leaves(variables)
+def _arcface(lv: _Leaves, model):
+    """The walk over a :class:`..models.arcface.IResNet`'s tensors."""
     lv.conv("conv1", "Conv_0")
     lv.bn("bn1", "BatchNorm_0")
     lv.prelu("prelu", "PReLU_0")
@@ -132,17 +149,16 @@ def load_arcface(model, variables: Mapping):
     return lv.finish(model)
 
 
-def load_clip(model, variables: Mapping):
-    """Fill a :class:`..models.clip_vit.ClipViT` from flax variables.
+def _clip(lv: _Leaves, model):
+    """The walk over a :class:`..models.clip_vit.ClipViT`'s tensors.
 
     ``class_token``, ``pos_embed`` and ``proj`` map by name; in each
     ``block_{i}`` flax counts names per type in creation order:
     ``LayerNorm_0``, ``MHA_0`` (``Dense_0`` qkv, ``Dense_1`` out),
     ``LayerNorm_1``, then ``Dense_0`` (fc) and ``Dense_1`` (proj)."""
-    lv = _Leaves(variables)
     lv.conv("patch_embed", "patch_embed")
     for name in ("class_token", "pos_embed", "proj"):
-        lv.put(name, lv.take(f"params/{name}"))
+        lv.link(name, f"params/{name}")
     lv.gn("ln_pre", "ln_pre")
     for i in range(len(model.blocks)):
         p, scope = f"blocks.{i}", f"block_{i}"
@@ -156,15 +172,14 @@ def load_clip(model, variables: Mapping):
     return lv.finish(model)
 
 
-def load_yolov8(model, variables: Mapping):
-    """Fill a :class:`..models.yolov8.YoloV8` from flax variables.
+def _yolov8(lv: _Leaves, model):
+    """The walk over a :class:`..models.yolov8.YoloV8`'s tensors.
 
     Flax names submodules per type in creation order: the backbone's and
     neck's ``ConvSiLU_n`` (each PAN ``C2f`` is created before the strided
     conv that feeds it), ``C2f_n``, ``SPPF_0``, then per head level box
     ConvSiLU ×2 + ``Conv``, cls ConvSiLU ×2 + ``Conv`` and, for a pose head,
     kps ConvSiLU ×2 + ``Conv``."""
-    lv = _Leaves(variables)
     counts: Dict[str, int] = {}
 
     def scope(kind: str) -> str:
@@ -202,3 +217,40 @@ def load_yolov8(model, variables: Mapping):
             convsilu(f"{p}.1", scope("ConvSiLU"))
             lv.conv(f"{p}.2", scope("Conv"), bias=True)
     return lv.finish(model)
+
+
+def load_scrfd(model, variables: Mapping):
+    """Fill a :class:`..models.scrfd.SCRFD` from flax variables."""
+    return _scrfd(_Leaves(variables), model)
+
+
+def load_arcface(model, variables: Mapping):
+    """Fill a :class:`..models.arcface.IResNet` from flax variables."""
+    return _arcface(_Leaves(variables), model)
+
+
+def load_clip(model, variables: Mapping):
+    """Fill a :class:`..models.clip_vit.ClipViT` from flax variables."""
+    return _clip(_Leaves(variables), model)
+
+
+def load_yolov8(model, variables: Mapping):
+    """Fill a :class:`..models.yolov8.YoloV8` from flax variables."""
+    return _yolov8(_Leaves(variables), model)
+
+
+def flax_variables(model) -> Dict:
+    """A model's weights as flax variables (numpy float32, nested
+    ``params``/``batch_stats``): the inverse of its ``load_*``, so
+    ``load_*(fresh_model, flax_variables(model))`` reproduces ``model``.
+    It names and shapes every leaf the JAX package's module has, which
+    makes it the template that :mod:`.loaders` fills from torch
+    checkpoints."""
+    from .arcface import IResNet
+    from .clip_vit import ClipViT
+    from .scrfd import SCRFD
+    from .yolov8 import YoloV8
+
+    walk = {SCRFD: _scrfd, IResNet: _arcface, ClipViT: _clip,
+            YoloV8: _yolov8}[type(model)]
+    return walk(_Export(model), model)

@@ -17,6 +17,7 @@ Outputs (host numpy, fixed shapes):
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict
 
 import numpy as np
@@ -143,8 +144,10 @@ class ScrfdArcFaceBackend:
     5-point keypoint head as ``scrfd_cfg`` selects the YOLOv8-face
     detector, ``use_arcface=False`` embeds the chips with a CLIP tower
     (``clip_face_cfg``, ViT-L-14 unless given; random init unless
-    ``clip_face_weights``). Variants this port does not carry yet (ONNX
-    checkpoints, host alignment) raise ``ValueError``.
+    ``clip_face_weights``). An ``.onnx`` path as ``scrfd_weights`` or
+    ``arcface_weights`` runs that graph (``models/onnx_zoo``) in the
+    compute dtype. Host alignment, which this port does not carry yet,
+    raises ``ValueError``.
     """
 
     def __init__(self, scrfd_cfg=None, arcface_cfg=None, det_size: int = 640,
@@ -161,16 +164,14 @@ class ScrfdArcFaceBackend:
         from ..models import yolov8 as YV
         from ..models.bridge import (load_arcface, load_clip, load_scrfd,
                                      load_yolov8)
+        from ..models.onnx_zoo import (OnnxArcFaceEncoder, OnnxScrfdDetector,
+                                       detect_faces_onnx, is_onnx_path)
 
         scrfd_cfg = scrfd_cfg or SD.SCRFD_2_5G
         arcface_cfg = arcface_cfg or AF.W600K_R50
         if host_align:
             raise ValueError("host_align is not ported to torch yet; the "
                              "fused on-device warp is the default")
-        for w in (scrfd_weights, arcface_weights):
-            if isinstance(w, str):
-                raise ValueError(f"ONNX checkpoint {w!r} is not supported by "
-                                 "the torch port; use .npz weights")
         self.device = torch.device(device or "cuda")
         self.dtype = dtype or torch.bfloat16
         self.use_arcface = bool(use_arcface)
@@ -183,28 +184,46 @@ class ScrfdArcFaceBackend:
         self.host_align = False
         self.transfer_format = transfer_format
 
-        if isinstance(scrfd_cfg, YV.YoloConfig):
-            # YOLOv8-face: the same output contract as SCRFD
-            YV.check_det_size(scrfd_cfg, self.det_size)
-            det, load_det = YV.YoloV8(scrfd_cfg), load_yolov8
-            self._detect = YV.detect_faces_yolo
+        if is_onnx_path(scrfd_weights):
+            # checkpoint-exact path: execute the insightface graph itself
+            # (the reference loads these same files, face_embedder.py:55-65)
+            self.scrfd_model = OnnxScrfdDetector(
+                scrfd_weights, det_size=self.det_size,
+                max_faces=self.max_faces, dtype=self.dtype,
+                device=self.device)
+            self._detect = detect_faces_onnx
         else:
-            SD.check_det_size(scrfd_cfg, self.det_size)
-            det, load_det = SD.SCRFD(scrfd_cfg), load_scrfd
-            self._detect = SD.detect_faces
-        if scrfd_weights is None:
-            _random_init(det, seed)
-        else:
-            load_det(det, scrfd_weights)
-        self.scrfd_model = det.eval().to(device=self.device, dtype=self.dtype)
+            if isinstance(scrfd_cfg, YV.YoloConfig):
+                # YOLOv8-face: the same output contract as SCRFD
+                YV.check_det_size(scrfd_cfg, self.det_size)
+                det, load_det = YV.YoloV8(scrfd_cfg), load_yolov8
+                self._detect = YV.detect_faces_yolo
+            else:
+                SD.check_det_size(scrfd_cfg, self.det_size)
+                det, load_det = SD.SCRFD(scrfd_cfg), load_scrfd
+                self._detect = SD.detect_faces
+            if scrfd_weights is None:
+                _random_init(det, seed)
+            else:
+                load_det(det, scrfd_weights)
+            self.scrfd_model = det.eval().to(device=self.device,
+                                             dtype=self.dtype)
         self.arcface_model = self.clip_model = None
-        if self.use_arcface:
+        if self.use_arcface and is_onnx_path(arcface_weights):
+            self.arcface_model = OnnxArcFaceEncoder(
+                arcface_weights, flip_tta=self.flip_tta, dtype=self.dtype,
+                device=self.device)
+            self.embed_dim = self.arcface_model.embed_dim
+            self._encode = self.arcface_model
+        elif self.use_arcface:
             arc = AF.IResNet(arcface_cfg).eval()
             if arcface_weights is None:
                 _random_init(arc, seed + 1)
             else:
                 load_arcface(arc, arcface_weights)
             self.arcface_model = arc.to(device=self.device, dtype=self.dtype)
+            self._encode = partial(AF.encode_chips, self.arcface_model,
+                                   flip_tta=self.flip_tta)
         else:
             # identity embedding by a CLIP image tower when ArcFace is off
             clip_cfg = clip_face_cfg or CV.VIT_L_14
@@ -215,6 +234,7 @@ class ScrfdArcFaceBackend:
                 load_clip(clip, clip_face_weights)
             self.clip_model = clip.to(device=self.device, dtype=self.dtype)
             self.embed_dim = clip_cfg.embed_dim
+            self._encode = partial(CV.encode_images, self.clip_model)
 
     # ---- device program -------------------------------------------------
     def _convert(self, wire: torch.Tensor) -> torch.Tensor:
@@ -228,8 +248,6 @@ class ScrfdArcFaceBackend:
 
     @torch.inference_mode()
     def _fused_bgr(self, frames: torch.Tensor) -> torch.Tensor:
-        from ..models.arcface import encode_chips
-        from ..models.clip_vit import encode_images
         from ..ops.align import align_chips
         from ..ops.preprocess import letterbox_topleft
         from ..ops.quality import chip_quality
@@ -244,12 +262,7 @@ class ScrfdArcFaceBackend:
         k = min(self.embed_slots or self.max_faces, self.max_faces)
         chips = align_chips(frames, det["kps"][:, :k], mask[:, :k])
         flat = chips.reshape(b * k, *chips.shape[2:])
-        if self.use_arcface:
-            feats = encode_chips(self.arcface_model, flat,
-                                 flip_tta=self.flip_tta)
-        else:
-            feats = encode_images(self.clip_model, flat)
-        feats = feats.reshape(b, k, -1)
+        feats = self._encode(flat).reshape(b, k, -1)
         quality = chip_quality(flat).reshape(b, k)
         if k < self.max_faces:
             pad = self.max_faces - k

@@ -80,27 +80,35 @@ def _pair(name):
     return model, variables, tm
 
 
-@pytest.fixture(scope="module", params=["clip_tiny", "clip_reid_s"])
+# (images, face chips) per tower-parity case: ViT-B-32, the published width
+# that the open_clip checkpoints carry, is held on 2 of each
+N_IMAGES = {"clip_tiny": (3, 5), "clip_reid_s": (3, 5), "ViT-B-32": (2, 2)}
+
+
+@pytest.fixture(scope="module", params=["clip_tiny", "clip_reid_s",
+                                        "ViT-B-32"])
 def tower(request):
     return _pair(request.param)
 
 
 def test_clip_vit_matches_flax(tower):
     model, variables, tm = tower
-    s = model.cfg.image_size
-    x = np.random.default_rng(0).normal(size=(3, s, s, 3)).astype(np.float32)
+    s, n = model.cfg.image_size, N_IMAGES[model.cfg.name][0]
+    x = np.random.default_rng(0).normal(size=(n, s, s, 3)).astype(np.float32)
     want = np.asarray(model.apply(variables, jnp.asarray(x)))
     with torch.no_grad():
         got = tm(_t(x)).numpy()
-    assert got.shape == (3, model.cfg.embed_dim)
+    assert got.shape == (n, model.cfg.embed_dim)
     np.testing.assert_allclose(got, want, atol=ATOL)
 
 
 def test_encode_images_on_face_chips(tower):
     """112×112 aligned face chips, as the CLIP-face branch feeds them:
-    downscaled to 32 (clip_tiny) or 96 (clip_reid_s) and normalised."""
+    resized to 32 (clip_tiny), 96 (clip_reid_s) or 224 (ViT-B-32) and
+    normalised."""
     model, variables, tm = tower
-    chips = np.random.default_rng(4).integers(0, 256, (5, 112, 112, 3))
+    n = N_IMAGES[model.cfg.name][1]
+    chips = np.random.default_rng(4).integers(0, 256, (n, 112, 112, 3))
     chips = chips.astype(np.float32)
     want = np.asarray(JC.encode_images(model, variables, jnp.asarray(chips)))
     got = TC.encode_images(tm, _t(chips)).numpy()

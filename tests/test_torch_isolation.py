@@ -77,6 +77,44 @@ with tempfile.TemporaryDirectory() as d:
     res = Curator(fb, bank, clip_backend=rb, batch=2, canvas=64).run(
         d, os.path.join(d, "out"), assume_identity=True)
     assert res["metrics"]["pool"] == 3
+    # checkpoint loaders, ONNX weights, speckle diagnostics, sweep, doctor
+    from person_capture_tpu_torch.models.bridge import flax_variables
+    from person_capture_tpu_torch.models import loaders
+    from person_capture_tpu_torch.tools import convert_weights, onnx_export
+    sd = loaders.torch_state_dict("arcface", flax_variables(
+        AF.IResNet(AF.TINY)), AF.TINY)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+               os.path.join(d, "arc.pt"))
+    assert convert_weights.main(["--src", os.path.join(d, "arc.pt"),
+                                 "--kind", "arcface",
+                                 "--out", os.path.join(d, "arc.npz")]) == 0
+    tpl = flax_variables(AF.IResNet(AF.TINY))
+    loaders.load_checkpoint(os.path.join(d, "arc.npz"), "arcface", tpl,
+                            AF.TINY)
+    for model in ("scrfd_tiny", "arcface_tiny"):
+        assert onnx_export.main(["--model", model, "--weights", "random",
+                                 "--det-size", "64", "--out",
+                                 os.path.join(d, model + ".onnx")]) == 0
+    ob = ScrfdArcFaceBackend(det_size=64, max_faces=4, dtype=torch.float32,
+                             device="cpu",
+                             scrfd_weights=os.path.join(d, "scrfd_tiny.onnx"),
+                             arcface_weights=os.path.join(d,
+                                                          "arcface_tiny.onnx"))
+    assert ob.extract_batch(frames, np.ones(2, bool))["feats"].shape == \
+        (2, 4, AF.TINY.embed_dim)
+    from person_capture_tpu_torch.hdr.diagnostics import \
+        run_speckle_diagnostics
+    from person_capture_tpu_torch.hdr.stills import HdrExportParams
+    rep = run_speckle_diagnostics(
+        np.full((16, 16), 500 << 6, np.uint16),
+        np.full((8, 8, 2), 512 << 6, np.uint16), (0, 0, 16, 16),
+        os.path.join(d, "diag"), HdrExportParams(device="cpu"))
+    assert len(rep["variants"]) == 5
+    from person_capture_tpu_torch import doctor, sweep
+    from person_capture_tpu_torch.utils.device import classify_error
+    assert classify_error("CUDA error: device-side assert") == "backend"
+    assert doctor.check_weights()["ok"]
+    assert sweep.expand_videos([d]) == []
 
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)

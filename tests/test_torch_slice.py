@@ -199,11 +199,45 @@ def test_defaults_match_jax_pipeline(body_fixture, tmp_path, monkeypatch):
         assert np.abs(a.astype(int) - b.astype(int)).max() <= 1
 
 
+def _checkpoint(tmp_path, token: str) -> str:
+    """Write the checkpoint a placeholder names, from the bundled weights:
+    torch state dicts in the official names (``torch.save``), ONNX graphs
+    (the port's exporter) and a converted ``src/`` ArcFace dump."""
+    from person_capture_tpu_torch.models import arcface as TA
+    from person_capture_tpu_torch.models import clip_vit as TC
+    from person_capture_tpu_torch.models import yolov8 as TY
+    from person_capture_tpu_torch.models.loaders import torch_state_dict
+    from person_capture_tpu_torch.models.zoo import resolve_weights
+    from person_capture_tpu_torch.tools import convert_weights, onnx_export
+
+    def save(kind, name, cfg, path):
+        torch.save({k: torch.from_numpy(v) for k, v in torch_state_dict(
+            kind, resolve_weights("auto", name), cfg).items()}, path)
+        return path
+
+    if token == "YOLO_PT":
+        return save("yolov8", "yolov8n", TY.YOLOV8N,
+                    str(tmp_path / "yolov8n.pt"))
+    if token == "REID_PT":
+        return save("clip", "clip_reid_s", TC.REID_S,
+                    str(tmp_path / "reid.pt"))
+    if token == "ARC_SRC":
+        out = str(tmp_path / "arc_src.npz")
+        pt = save("arcface", "arcface_synth", TA.SYNTH_R18,
+                  str(tmp_path / "arc.pt"))
+        assert convert_weights.main(["--src", pt, "--kind", "arcface",
+                                     "--out", out]) == 0
+        return out
+    model = {"SCRFD_ONNX": "scrfd_2.5g", "ARC_ONNX": "arcface_synth"}[token]
+    out = str(tmp_path / f"{model}.onnx")
+    assert onnx_export.main(["--model", model, "--out", out,
+                             "--det-size", str(DET)]) == 0
+    return out
+
+
 def _parsed(tmp_path, sets, extra):
-    pt = tmp_path / "x.pt"
-    pt.write_bytes(b"")
     argv = _argv(tmp_path, tmp_path / "out") + [
-        str(pt) if a == "PT_FILE" else a for a in extra]
+        _checkpoint(tmp_path, a) if a.isupper() else a for a in extra]
     for s in sets:
         argv += ["--set", s]
     ap = TM.build_parser()
@@ -212,11 +246,9 @@ def _parsed(tmp_path, sets, extra):
 
 
 @pytest.mark.parametrize("sets,extra,setting", [
-    (["compose_detect_person_for_face=true"], ["--yolo", "PT_FILE"],
-     ".npz"),
-    ([], ["--match-mode", "either", "--reid-weights", "PT_FILE"], ".npz"),
+    ([], ["--multihost"], "--multihost"),
+    ([], ["--coordinator", "localhost:1234"], "--coordinator"),
     ([], ["--mesh", "data:2"], "--mesh"),
-    ([], ["--scrfd-weights", "det.onnx"], "flax .npz"),
 ])
 def test_unported_branches_raise_value_error(tmp_path, sets, extra, setting):
     """Every branch of the runtime the port does not carry is refused up
@@ -234,13 +266,36 @@ def test_unported_branches_raise_value_error(tmp_path, sets, extra, setting):
     (["use_arcface=false", "clip_face_backbone=clip_tiny"], []),
     ([], ["--match-mode", "both"]),
     ([], ["--face-model", "yolov8n-face"]),
+    (["compose_detect_person_for_face=true"], ["--yolo", "YOLO_PT"]),
+    (["reid_backbone=clip_reid_s"],
+     ["--match-mode", "either", "--reid-weights", "REID_PT"]),
+    ([], ["--scrfd-weights", "SCRFD_ONNX", "--arcface-weights", "ARC_ONNX"]),
+    ([], ["--arcface-model", "arcface_synth", "--arcface-weights",
+          "ARC_SRC"]),
 ])
 def test_ported_branches_build(tmp_path, sets, extra):
     """The branches the earlier slices refused now build the backends the
-    JAX runtime builds for them."""
+    JAX runtime builds for them; checkpoints in every format the JAX CLI
+    loads hold the bundled weights they were written from."""
     from person_capture_tpu_torch.models import clip_vit as TC
     from person_capture_tpu_torch.models import yolov8 as TY
+    from person_capture_tpu_torch.models.bridge import flax_variables
+    from person_capture_tpu_torch.models.onnx_zoo import (OnnxArcFaceEncoder,
+                                                          OnnxScrfdDetector)
+    from person_capture_tpu_torch.models.zoo import resolve_weights
     from person_capture_tpu_torch.pipeline import backends as TB
+    from person_capture_tpu_torch.tools.weights import flatten_tree
+
+    def holds(model, bundled):
+        """The model holds the bundled weights (in its own dtype: the
+        person detector and the ReID tower run bf16)."""
+        dtype = next(model.parameters()).dtype
+        got = flatten_tree(flax_variables(model))
+        want = flatten_tree(resolve_weights("auto", bundled))
+        assert set(got) == set(want)
+        for k, v in want.items():
+            v = torch.from_numpy(np.asarray(v, np.float32)).to(dtype).float()
+            assert np.array_equal(got[k], v.numpy()), k
 
     ap, args, cfg = _parsed(tmp_path, sets, extra)
     rt = TM.build_runtime(cfg, args, ap)
@@ -265,3 +320,13 @@ def test_ported_branches_build(tmp_path, sets, extra):
         assert isinstance(face.scrfd_model, TY.YoloV8)
     if cfg.curate_enable:
         assert rt["person"] is None and rt["reid"] is None
+    if "YOLO_PT" in extra:
+        holds(rt["person"].model, "yolov8n")
+    if "REID_PT" in extra:
+        holds(rt["reid"].model, "clip_reid_s")
+    if "SCRFD_ONNX" in extra:
+        assert isinstance(face.scrfd_model, OnnxScrfdDetector)
+        assert isinstance(face.arcface_model, OnnxArcFaceEncoder)
+        assert face.embed_dim == 256 and face.det_size == DET
+    if "ARC_SRC" in extra:
+        holds(face.arcface_model, "arcface_synth")
