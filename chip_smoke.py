@@ -95,11 +95,29 @@ non-zero without printing a result:
               resumes all 3; seconds per video; ``doctor --json`` reports
               the card.
 
-Phases 8 to 13 reach no hand-written kernel beyond the tone-map: the CLIP
+14. train   — each trainer (``train/*_synth.py``) at its CLI default
+              width (SCRFD-2.5G, YOLOv8n and YOLOv8n-face at 256 px and
+              batch 32, ArcFace SYNTH_R18 on 112-px chips and CLIP
+              clip_reid_s at 96 px, batch 48): three steps on the card with
+              TF32 off against three on the CPU (batch 2), losses rel
+              ≤ 1e-3; FLOPs of a step (``utils/mfu.program_cost``) and its
+              device time on one made batch; 20 steps through ``train()``
+              with a checkpoint dir at the torch defaults (ms per step, the
+              median after 3 steps, host batch making included), finite
+              losses, then a resume at step 20; the ``--out`` file, float16,
+              loads strictly through ``bridge.load_*``; MFU against the
+              card's TF32 peak. SCRFD-2.5G at ``--dtype bfloat16``, finite
+              losses. ``FaceEmbedder`` on a frame of phase 4's fixture
+              finds the backend's faces; ``host_align=True`` against the
+              fused chain on 8 of its frames (both from BGR): the same
+              slots, cosine ≥ 0.99, both timed in turns.
+
+Phases 8 to 14 reach no hand-written kernel beyond the tone-map: the CLIP
 tower, the curator's pHash and MMR, the ONNX interpreter, the loaders, the
-sweep and the doctor are torch ops and host code, as they are XLA ops and
-host code in the JAX package. Each phase's tone-map launches are counted
-from 0 just before its run and printed in the ``kernels`` line.
+sweep, the doctor and the train steps are torch ops and host code, as they
+are XLA ops and host code in the JAX package. Each phase's tone-map
+launches are counted from 0 just before its run and printed in the
+``kernels`` line.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -107,6 +125,7 @@ Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -1340,6 +1359,270 @@ def phase_sweep(work: str, body_fixture, curate_hits) -> dict:
     return launches
 
 
+# phase 14: each trainer at its CLI default width (train/*.py ``main``)
+TRAINERS = (
+    ("scrfd_synth", dict(cfg_name="scrfd_2.5g", size=256, batch=32),
+     "load_scrfd"),
+    ("yolo_synth", dict(cfg_name="yolov8n", size=256, batch=32),
+     "load_yolov8"),
+    ("yolo_face_synth", dict(cfg_name="yolov8n_face", size=256, batch=32),
+     "load_yolov8"),
+    ("arcface_synth", dict(cfg_name="arcface_synth", batch=48),
+     "load_arcface"),
+    ("clip_reid_synth", dict(cfg_name="clip_reid_s", batch=48),
+     "load_clip"),
+)
+TRAIN_STEPS = 20
+# the card-against-CPU comparison runs a smaller batch: a CPU step of
+# YOLOv8n at 256 px takes seconds per image
+PARITY_BATCH = 2
+
+
+def _quiet(fn, *a, **kw):
+    """``fn`` with its standard output captured: ``(result, text)``."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **kw)
+    return out, buf.getvalue()
+
+
+def _logged_losses(text: str) -> list:
+    import re
+
+    return [float(v) for v in re.findall(r" loss=([-+0-9.eE]+|nan|inf)",
+                                          text)]
+
+
+@contextlib.contextmanager
+def _no_tf32():
+    """cuDNN convolutions in fp32 without TF32 (matmuls have it off in
+    this script): the card held to the CPU."""
+    import torch
+
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+def train_parity(mod, kw) -> dict:
+    """Three steps on the card (TF32 off) against three on the CPU, from
+    the same init and batches."""
+    losses = {}
+    with _no_tf32():
+        for dev in ("cpu", "cuda"):
+            run = mod.setup(**{**kw, "batch": PARITY_BATCH}, steps=3,
+                            device=dev)
+            losses[dev] = [float(run.step(i)["loss"]) for i in range(3)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses["cuda"],
+                                                   losses["cpu"]))
+    return {"losses_card": losses["cuda"], "losses_cpu": losses["cpu"],
+            "max_rel": rel}
+
+
+def train_device_step(mod, kw, dtype_name: str = "float32") -> dict:
+    """FLOPs of one step (forward and backward, ``utils/mfu.
+    program_cost``) and its device time on one made batch, back to back
+    (``cuda_ms``), at the torch defaults (TF32 convolutions in fp32)."""
+    from person_capture_tpu_torch.utils.mfu import program_cost
+
+    run = mod.setup(**kw, steps=TRAIN_STEPS, dtype_name=dtype_name,
+                    device="cuda")
+    args = run.batch(0)
+
+    def fwd_bwd():
+        with run.state.autocast():
+            loss, _ = run.loss_fn(*args)
+        loss.backward()
+
+    flops = program_cost(fwd_bwd)["flops"]
+    ms = cuda_ms(lambda: run.state.step(run.loss_fn, *args), reps=5,
+                 inner=5, warmup=2)
+    return {"flops": flops, "ms": ms}
+
+
+def phase_train(work: str, fixture) -> dict:
+    """Phase 14: the synthetic-weight trainers at their CLI defaults, the
+    facades and ``host_align``; reaches no hand-written kernel."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from person_capture_tpu_torch.models import arcface as AF
+    from person_capture_tpu_torch.models import bridge
+    from person_capture_tpu_torch.models import clip_vit as CV
+    from person_capture_tpu_torch.models import scrfd as SD
+    from person_capture_tpu_torch.models import yolov8 as YV
+    from person_capture_tpu_torch.tools.weights import load_npz_variables
+    from person_capture_tpu_torch.train.ckpt import list_checkpoints
+    from person_capture_tpu_torch.utils.mfu import chip_peak_tflops
+
+    t_phase = time.perf_counter()
+    reset_launches()
+    peak_tf32 = chip_peak_tflops("cuda", torch.float32)
+    peak_bf16 = chip_peak_tflops("cuda", torch.bfloat16)
+    fresh = {"scrfd_synth": lambda c: SD.SCRFD(SD.CONFIGS[c]),
+             "yolo_synth": lambda c: YV.YoloV8(YV.CONFIGS[c]),
+             "yolo_face_synth": lambda c: YV.YoloV8(YV.CONFIGS[c]),
+             "arcface_synth": lambda c: AF.IResNet(AF.CONFIGS[c]),
+             "clip_reid_synth": lambda c: CV.ClipViT(CV.CONFIGS[c])}
+    trainers = {}
+    for name, kw, loader in TRAINERS:
+        mod = importlib.import_module(f"person_capture_tpu_torch.train.{name}")
+        parity = train_parity(mod, kw)
+        require(parity["max_rel"] <= 1e-3,
+                f"{name}: card against CPU losses {parity}")
+        dev = train_device_step(mod, kw)
+        ck = os.path.join(work, f"ck_{name}")
+        out = os.path.join(work, f"{name}.npz")
+        common = dict(kw, seed=0, log_every=1, eval_every=0, ckpt_dir=ck,
+                      device="cuda")
+        t0 = time.perf_counter()
+        (_, final), text = _quiet(
+            mod.train, steps=TRAIN_STEPS, ckpt_every=TRAIN_STEPS // 2,
+            out=out, **common)
+        wall_s = time.perf_counter() - t0
+        losses = _logged_losses(text)
+        require(len(losses) == TRAIN_STEPS
+                and all(np.isfinite(v) for v in losses),
+                f"{name}: losses {losses}")
+        (_, _), text = _quiet(mod.train, steps=TRAIN_STEPS + 2,
+                              ckpt_every=1, **common)
+        resumed = _logged_losses(text)
+        require(f"(step {TRAIN_STEPS})" in text and len(resumed) == 2
+                and all(np.isfinite(v) for v in resumed),
+                f"{name}: no resume at step {TRAIN_STEPS}: {text[-400:]}")
+        require([s for s, _ in list_checkpoints(ck)]
+                == [TRAIN_STEPS + 1, TRAIN_STEPS + 2],
+                f"{name}: checkpoints {list_checkpoints(ck)}")
+        weights = load_npz_variables(out)
+        require(all(v.dtype == np.float16 for v in
+                    _flat_values(weights)), f"{name}: not float16")
+        getattr(bridge, loader)(fresh[name](kw["cfg_name"]), _f32(weights))
+        ms = final["ms_per_step"]
+        trainers[name] = {
+            **kw, "parity": parity,
+            "losses_first_last": [losses[0], losses[-1]],
+            "ms_per_step": ms, "device_ms_per_step": dev["ms"],
+            "flops_per_step": dev["flops"],
+            "tflops": dev["flops"] / ms / 1e9,
+            "device_tflops": dev["flops"] / dev["ms"] / 1e9,
+            "mfu": dev["flops"] / ms / 1e9 / peak_tf32 if peak_tf32
+            else None,
+            "device_mfu": dev["flops"] / dev["ms"] / 1e9 / peak_tf32
+            if peak_tf32 else None,
+            "train_wall_s": wall_s, "eval": {k: v for k, v in final.items()
+                                             if k != "ms_per_step"}}
+    # bf16: SCRFD-2.5G at its defaults, fp32 parameters under autocast
+    mod = importlib.import_module("person_capture_tpu_torch.train."
+                                  "scrfd_synth")
+    kw = TRAINERS[0][1]
+    (_, final), text = _quiet(mod.train, steps=6, seed=0, log_every=1,
+                              eval_every=0, dtype_name="bfloat16",
+                              device="cuda", **kw)
+    bf16_losses = _logged_losses(text)
+    require(len(bf16_losses) == 6 and all(np.isfinite(v)
+                                           for v in bf16_losses),
+            f"bf16 losses {bf16_losses}")
+    bf16_dev = train_device_step(mod, kw, "bfloat16")
+    facades = phase_train_facades(fixture)
+    launches = read_launches()
+    emit(phase="train", peak_tflops={"tf32": peak_tf32, "bf16": peak_bf16},
+         mfu_peak="tf32 (fp32 runs: cuDNN convolutions in TF32, torch's "
+                  "default)", trainers=trainers,
+         scrfd_bf16={"losses": bf16_losses, "ms_per_step":
+                     final["ms_per_step"], "device_ms_per_step":
+                     bf16_dev["ms"], "flops_per_step": bf16_dev["flops"],
+                     "device_mfu": bf16_dev["flops"] / bf16_dev["ms"] / 1e9
+                     / peak_bf16 if peak_bf16 else None},
+         facades=facades, launches=launches,
+         seconds=time.perf_counter() - t_phase)
+    return launches
+
+
+def _flat_values(tree):
+    from person_capture_tpu_torch.tools.weights import flatten_tree
+
+    return list(flatten_tree(tree).values())
+
+
+def _f32(tree):
+    from person_capture_tpu_torch.tools.weights import (flatten_tree,
+                                                        unflatten_tree)
+
+    return unflatten_tree({k: v.astype("float32")
+                           for k, v in flatten_tree(tree).items()})
+
+
+def phase_train_facades(fixture) -> dict:
+    """``FaceEmbedder`` on a frame of phase 4's fixture against its
+    backend's ``extract_batch``; ``host_align=True`` against the fused
+    chain on 8 of its frames (both from BGR, the wire format aside), and
+    both timed in turns."""
+    import cv2
+    import numpy as np
+
+    from person_capture_tpu_torch.face_embedder import FaceEmbedder
+    from person_capture_tpu_torch.models import arcface as AF
+    from person_capture_tpu_torch.models import scrfd as SD
+    from person_capture_tpu_torch.models.zoo import resolve_weights
+    from person_capture_tpu_torch.pipeline.backends import \
+        ScrfdArcFaceBackend
+
+    vid, _ref, truth = fixture[:3]
+    sdr = os.path.join(os.path.dirname(vid), "sdr.mp4")
+    want = [f for s, e in truth for f in range(s, e + 1, 8)][:8]
+    cap = cv2.VideoCapture(sdr)
+    frames, i = [], 0
+    while len(frames) < len(want):
+        ok, frame = cap.read()
+        require(ok, f"could not read frame {i} of {sdr}")
+        if i in want:
+            frames.append(frame)
+        i += 1
+    cap.release()
+    frames = np.stack(frames)
+    arc_w = resolve_weights("auto", "arcface_synth")
+    fe = FaceEmbedder(ctx="cuda", arcface_model="arcface_synth",
+                      arcface_weights=arc_w)
+    faces = fe.extract(frames[0])
+    direct = fe._backend.inner.extract_batch(frames[:1], np.ones(1, bool))
+    boxes = direct["boxes"][0][direct["mask"][0]].astype(np.int32)
+    require(len(faces) >= 1 and sorted(map(tuple, boxes.tolist()))
+            == sorted(tuple(f["bbox"].tolist()) for f in faces),
+            f"FaceEmbedder faces {[f['bbox'] for f in faces]} != the "
+            f"backend's {boxes}")
+    kw = dict(scrfd_weights=resolve_weights("auto", "scrfd_2.5g"),
+              arcface_weights=arc_w, device="cuda")
+    host = ScrfdArcFaceBackend(SD.SCRFD_2_5G, AF.SYNTH_R18, host_align=True,
+                               **kw)
+    fused = ScrfdArcFaceBackend(SD.SCRFD_2_5G, AF.SYNTH_R18,
+                                transfer_format="bgr", **kw)
+    valid = np.ones(len(frames), bool)
+    a = host.submit_batch(frames, valid)()
+    b = fused.extract_batch(frames, valid)
+    m = a["mask"]
+    require(m.any() and (b["mask"] == m).all(),
+            f"host_align slots {m.sum(1)} != fused {b['mask'].sum(1)}")
+    fa, fb = a["feats"][m].astype(np.float64), b["feats"][m].astype(
+        np.float64)
+    cos = (fa * fb).sum(-1) / (np.linalg.norm(fa, axis=-1)
+                               * np.linalg.norm(fb, axis=-1))
+    require(cos.min() >= 0.99, f"host_align vs fused cosine {cos.min()}")
+    times = in_turns({"host_align": lambda: host.extract_batch(frames, valid),
+                      "fused": lambda: fused.extract_batch(frames, valid)},
+                     timer=lambda f: wall_ms(f, reps=5, warmup=2))
+    return {"face_embedder_faces": len(faces), "frames": want,
+            "host_align_faces": int(m.sum()),
+            "host_align_vs_fused_min_cosine": float(cos.min()),
+            "batch_ms": times}
+
+
 def main() -> int:
     import torch
 
@@ -1367,7 +1650,8 @@ def main() -> int:
                  "yolo_face": phase_yolo_face(work, fixture[:3]),
                  "diag": phase_diag(work, fixture[:3]),
                  "onnx": phase_onnx(work, fixture),
-                 "sweep": phase_sweep(work, body_fixture, curate_hits)}
+                 "sweep": phase_sweep(work, body_fixture, curate_hits),
+                 "train": phase_train(work, fixture)}
     source = "person_capture_tpu_torch/csrc/tonemap.cu"
     replaces = "person_capture_tpu/kernels/hdr.py:217"
 

@@ -14,7 +14,8 @@ from typing import Tuple
 import torch
 import torch.nn as nn
 
-from .layers import BN_EPS, IBasicBlock, PReLU
+from .layers import (BN_EPS, IRESNET_MOMENTUM, BatchNorm1d, BatchNorm2d,
+                     IBasicBlock, PReLU)
 from ..ops.preprocess import normalize_arcface
 
 
@@ -48,7 +49,8 @@ class IResNet(nn.Module):
         self.cfg = cfg
         chans = cfg.stage_channels
         self.conv1 = nn.Conv2d(3, chans[0], 3, 1, 1, bias=False)
-        self.bn1 = nn.BatchNorm2d(chans[0], eps=BN_EPS)
+        self.bn1 = BatchNorm2d(chans[0], eps=BN_EPS,
+                               momentum=IRESNET_MOMENTUM)
         self.prelu = PReLU(chans[0])
         blocks = []
         cin = chans[0]
@@ -57,10 +59,12 @@ class IResNet(nn.Module):
                 blocks.append(IBasicBlock(cin, ch, 2 if bi == 0 else 1))
                 cin = ch
         self.blocks = nn.Sequential(*blocks)
-        self.bn2 = nn.BatchNorm2d(chans[-1], eps=BN_EPS)
+        self.bn2 = BatchNorm2d(chans[-1], eps=BN_EPS,
+                               momentum=IRESNET_MOMENTUM)
         s = cfg.input_size // 16
         self.fc = nn.Linear(chans[-1] * s * s, cfg.embed_dim)
-        self.features = nn.BatchNorm1d(cfg.embed_dim, eps=BN_EPS)
+        self.features = BatchNorm1d(cfg.embed_dim, eps=BN_EPS,
+                                    momentum=IRESNET_MOMENTUM)
 
     def forward(self, x):
         """x: normalized ``[N, 3, S, S]`` RGB → ``[N, D]``."""

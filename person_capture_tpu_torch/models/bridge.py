@@ -89,16 +89,21 @@ class _Leaves:
 class _Export(_Leaves):
     """The same walk run backwards: each tensor of a module becomes its
     flax leaf (torch → flax layout), so :func:`flax_variables` names and
-    shapes exactly the leaves the matching ``load_*`` consumes."""
+    shapes exactly the leaves the matching ``load_*`` consumes. Given
+    ``tensors`` (one per parameter name) in place of the module's own, it
+    exports those, and leaves out the names they lack (the statistics)."""
 
-    def __init__(self, module: torch.nn.Module):
-        self.sd = module.state_dict()
+    def __init__(self, module: torch.nn.Module, tensors=None):
+        self.sd = module.state_dict() if tensors is None else tensors
         self.flat = {}
 
     def link(self, name: str, path: str, perm=None) -> None:
+        if name not in self.sd and not path.startswith("params/"):
+            return
         arr = self.sd[name].detach().float().cpu().numpy()
-        self.flat[path] = arr if perm is None else \
-            arr.transpose(np.argsort(perm))
+        # a copy: a CPU tensor's numpy() shares the module's storage
+        self.flat[path] = np.array(arr if perm is None else
+                                   arr.transpose(np.argsort(perm)))
 
     def finish(self, module: torch.nn.Module) -> Dict:
         return unflatten_tree(self.flat)
@@ -239,6 +244,16 @@ def load_yolov8(model, variables: Mapping):
     return _yolov8(_Leaves(variables), model)
 
 
+def _walk(model):
+    from .arcface import IResNet
+    from .clip_vit import ClipViT
+    from .scrfd import SCRFD
+    from .yolov8 import YoloV8
+
+    return {SCRFD: _scrfd, IResNet: _arcface, ClipViT: _clip,
+            YoloV8: _yolov8}[type(model)]
+
+
 def flax_variables(model) -> Dict:
     """A model's weights as flax variables (numpy float32, nested
     ``params``/``batch_stats``): the inverse of its ``load_*``, so
@@ -246,11 +261,12 @@ def flax_variables(model) -> Dict:
     It names and shapes every leaf the JAX package's module has, which
     makes it the template that :mod:`.loaders` fills from torch
     checkpoints."""
-    from .arcface import IResNet
-    from .clip_vit import ClipViT
-    from .scrfd import SCRFD
-    from .yolov8 import YoloV8
+    return _walk(model)(_Export(model), model)
 
-    walk = {SCRFD: _scrfd, IResNet: _arcface, ClipViT: _clip,
-            YoloV8: _yolov8}[type(model)]
-    return walk(_Export(model), model)
+
+def flax_params(model, tensors: Mapping[str, torch.Tensor]) -> Dict:
+    """One tensor per parameter of ``model`` (its gradients, or an
+    optimizer's moments), keyed by parameter name, as the flax ``params``
+    tree of the same leaves: ``{"params": {...}}`` in flax layout, numpy
+    float32. A parameter missing from ``tensors`` raises ``KeyError``."""
+    return _walk(model)(_Export(model, tensors), model)

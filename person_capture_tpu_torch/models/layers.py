@@ -2,6 +2,10 @@
 
 Counterparts of ``person_capture_tpu/models/layers.py``; parameters load
 from the JAX package's checkpoints through :mod:`.bridge`.
+
+BatchNorm momentum is torch's, ``1 −`` flax's: ``ConvBN`` 0.1 (flax 0.9),
+the iResNet's BatchNorms 0.01 (flax's default 0.99). It is read only in
+training, as is the running-statistics rule of :class:`BatchNorm2d`.
 """
 
 from __future__ import annotations
@@ -11,6 +15,38 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 BN_EPS = 1e-5
+IRESNET_MOMENTUM = 0.01   # flax BatchNorm's default momentum 0.99
+
+
+class _FlaxStats:
+    """A BatchNorm whose training step keeps flax's running statistics:
+    ``running ← (1 − m)·running + m·batch`` with the *biased* batch variance,
+    where torch's own writes the unbiased one (a factor n/(n−1), 2 % for a
+    batch of 48 in ArcFace's final BatchNorm1d). The batch is normalised
+    exactly as torch does; only the variance written back differs."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        n = x.numel() // x.shape[1]
+        # copies: autograd keeps the statistics it was given for backward
+        mean, var = self.running_mean.clone(), self.running_var.clone()
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        with torch.no_grad():
+            # torch wrote keep + m·var·n/(n−1); flax keeps keep + m·var
+            keep = self.running_var * (1.0 - self.momentum)
+            self.running_mean.copy_(mean)
+            self.running_var.copy_((var - keep) * ((n - 1) / n) + keep)
+        return y
+
+
+class BatchNorm2d(_FlaxStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm1d(_FlaxStats, nn.BatchNorm1d):
+    pass
 
 
 class ConvBN(nn.Module):
@@ -21,7 +57,7 @@ class ConvBN(nn.Module):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
                               groups=groups, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn = BatchNorm2d(cout, eps=BN_EPS, momentum=0.1)
         self.act = act
 
     def forward(self, x):
@@ -72,17 +108,18 @@ class IBasicBlock(nn.Module):
 
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
-        self.bn1 = nn.BatchNorm2d(cin, eps=BN_EPS)
+        m = IRESNET_MOMENTUM
+        self.bn1 = BatchNorm2d(cin, eps=BN_EPS, momentum=m)
         self.conv1 = nn.Conv2d(cin, cout, 3, 1, 1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn2 = BatchNorm2d(cout, eps=BN_EPS, momentum=m)
         self.prelu = PReLU(cout)
         self.conv2 = nn.Conv2d(cout, cout, 3, stride, 1, bias=False)
-        self.bn3 = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn3 = BatchNorm2d(cout, eps=BN_EPS, momentum=m)
         self.down = None
         if stride != 1 or cin != cout:
             self.down = nn.Sequential(
                 nn.Conv2d(cin, cout, 1, stride, bias=False),
-                nn.BatchNorm2d(cout, eps=BN_EPS))
+                BatchNorm2d(cout, eps=BN_EPS, momentum=m))
 
     def forward(self, x):
         y = self.conv1(self.bn1(x))

@@ -17,11 +17,12 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .layers import upsample2x
+from .layers import BatchNorm2d, upsample2x
 from ..ops.nms import nms_select, stable_topk
 from ..ops.preprocess import normalize_yolo
 
 BN_EPS = 1e-3  # the flax model's BatchNorm epsilon (ultralytics' value)
+BN_MOMENTUM = 0.03  # torch's 1 − the flax model's 0.97
 
 
 @dataclass(frozen=True)
@@ -55,14 +56,14 @@ CONFIGS = {c.name: c for c in (TINY, YOLOV8N, YOLOV8S, TINY_FACE,
 
 
 class ConvSiLU(nn.Module):
-    """Conv (no bias) → BatchNorm (eps 1e-3) → SiLU."""
+    """Conv (no bias) → BatchNorm (eps 1e-3, momentum 0.03) → SiLU."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3,
                  stride: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2,
                               bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=BN_EPS)
+        self.bn = BatchNorm2d(cout, eps=BN_EPS, momentum=BN_MOMENTUM)
 
     def forward(self, x):
         return F.silu(self.bn(self.conv(x)))

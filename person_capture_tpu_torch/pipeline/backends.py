@@ -13,6 +13,9 @@ Outputs (host numpy, fixed shapes):
   boxes ``[B, F, 4]`` xyxy in *reader frame coords*, kps ``[B, F, 5, 2]``,
   scores ``[B, F]``, mask ``[B, F]`` bool, feats ``[B, F, D]`` L2-normalized,
   quality ``[B, F]`` (Laplacian variance of the aligned chip).
+
+:class:`OracleBackend` and :class:`OraclePersonBackend` are the JAX
+package's numpy test oracles (ground truth of a synthetic video), copied.
 """
 
 from __future__ import annotations
@@ -146,8 +149,10 @@ class ScrfdArcFaceBackend:
     (``clip_face_cfg``, ViT-L-14 unless given; random init unless
     ``clip_face_weights``). An ``.onnx`` path as ``scrfd_weights`` or
     ``arcface_weights`` runs that graph (``models/onnx_zoo``) in the
-    compute dtype. Host alignment, which this port does not carry yet,
-    raises ``ValueError``.
+    compute dtype. ``host_align=True`` splits the chain into detect on the
+    device, a cv2 similarity warp of each face on the host
+    (:meth:`_align_host`) and embed on the device, as the JAX backend's
+    host-align mode does.
     """
 
     def __init__(self, scrfd_cfg=None, arcface_cfg=None, det_size: int = 640,
@@ -169,9 +174,6 @@ class ScrfdArcFaceBackend:
 
         scrfd_cfg = scrfd_cfg or SD.SCRFD_2_5G
         arcface_cfg = arcface_cfg or AF.W600K_R50
-        if host_align:
-            raise ValueError("host_align is not ported to torch yet; the "
-                             "fused on-device warp is the default")
         self.device = torch.device(device or "cuda")
         self.dtype = dtype or torch.bfloat16
         self.use_arcface = bool(use_arcface)
@@ -181,7 +183,7 @@ class ScrfdArcFaceBackend:
         self.max_faces = int(max_faces)
         self.embed_dim = arcface_cfg.embed_dim
         self.flip_tta = bool(flip_tta)
-        self.host_align = False
+        self.host_align = bool(host_align)
         self.transfer_format = transfer_format
 
         if is_onnx_path(scrfd_weights):
@@ -247,17 +249,34 @@ class ScrfdArcFaceBackend:
         return self._fused_bgr(self._convert(wire))
 
     @torch.inference_mode()
+    def _detect_bgr(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Detect only: float32 BGR ``[B, H, W, 3]`` on the device →
+        letterbox → detector → NMS slots (frame coordinates)."""
+        from ..ops.preprocess import letterbox_topleft
+
+        padded, scale = letterbox_topleft(frames, self.det_size)
+        scales = torch.full((frames.shape[0],), scale, dtype=torch.float32,
+                            device=frames.device)
+        return self._detect(self.scrfd_model, padded, scales,
+                            self.score_thresh, self.max_faces)
+
+    @torch.inference_mode()
+    def _embed(self, chips: torch.Tensor, mask: torch.Tensor):
+        """Embed only: ``[N, 112, 112, 3]`` chips → (feats ``[N, D]``,
+        quality ``[N]``), zero where ``mask [N]`` is False."""
+        from ..ops.quality import chip_quality
+
+        zero = torch.zeros((), device=chips.device)
+        feats = torch.where(mask[:, None], self._encode(chips), zero)
+        return feats, torch.where(mask, chip_quality(chips), zero)
+
+    @torch.inference_mode()
     def _fused_bgr(self, frames: torch.Tensor) -> torch.Tensor:
         from ..ops.align import align_chips
-        from ..ops.preprocess import letterbox_topleft
         from ..ops.quality import chip_quality
 
         b = frames.shape[0]
-        padded, scale = letterbox_topleft(frames, self.det_size)
-        scales = torch.full((b,), scale, dtype=torch.float32,
-                            device=frames.device)
-        det = self._detect(self.scrfd_model, padded, scales,
-                           self.score_thresh, self.max_faces)
+        det = self._detect_bgr(frames)
         mask = det["mask"]
         k = min(self.embed_slots or self.max_faces, self.max_faces)
         chips = align_chips(frames, det["kps"][:, :k], mask[:, :k])
@@ -321,9 +340,49 @@ class ScrfdArcFaceBackend:
     def submit_batch(self, frames, valid, frame_idxs=None):
         """Enqueue the device work and return a zero-arg callable producing
         the host dict. On CUDA the packed result is copied into pinned host
-        memory without blocking; the fetch waits on that copy alone."""
+        memory without blocking; the fetch waits on that copy alone. With
+        ``host_align`` the batch runs synchronously and the callable
+        returns its result."""
+        if self.host_align:
+            out = self._extract_host_align(frames, valid)
+            return lambda: out
         wire = self._prepare_transfer(np.asarray(frames))
         return self._fetcher(self._fused(self._upload(wire)), valid)
+
+    def _align_host(self, frames, kps, mask):
+        """cv2 similarity warp of every valid face (reference:
+        face_embedder.py:1465-1473 semantics: umeyama ≙ LMEDS on clean
+        points, INTER_LINEAR, reflect border)."""
+        import cv2
+
+        from ..ops.align import ARC_DST, umeyama_similarity
+
+        b, f = mask.shape
+        chips = np.zeros((b * f, 112, 112, 3), np.float32)
+        for i in range(b):
+            frame = frames[i].astype(np.float32)
+            for j in np.flatnonzero(mask[i]):
+                m = umeyama_similarity(torch.from_numpy(kps[i, j]),
+                                       ARC_DST).numpy()
+                chips[i * f + j] = cv2.warpAffine(
+                    frame, m, (112, 112), flags=cv2.INTER_LINEAR,
+                    borderMode=cv2.BORDER_REFLECT)
+        return chips
+
+    def _extract_host_align(self, frames, valid):
+        """Detect on the device (the BGR frames as they are, no wire
+        format), align on the host, embed every slot on the device."""
+        frames = np.asarray(frames)
+        det = self._detect_bgr(self._upload(frames).float())
+        host = {k: start_download(v)() for k, v in det.items()}
+        host["mask"] = host["mask"] & np.asarray(valid)[:, None]
+        b, f = host["mask"].shape
+        chips = self._align_host(frames, host["kps"], host["mask"])
+        mask = torch.from_numpy(host["mask"].reshape(-1)).to(self.device)
+        feats, quality = self._embed(self._upload(chips), mask)
+        host["feats"] = start_download(feats)().reshape(b, f, -1)
+        host["quality"] = start_download(quality)().reshape(b, f)
+        return host
 
     def _fetcher(self, packed_dev: torch.Tensor, valid):
         valid = np.asarray(valid).copy()
@@ -559,3 +618,86 @@ class ClipReidBackend:
             emb = encode_images(self.model, t)
             out.append(start_download(emb)()[:n])
         return np.concatenate(out, 0)
+
+
+class OraclePersonBackend:
+    """Ground-truth person boxes for tests: each synthetic face's box
+    inflated to a plausible body box."""
+
+    def __init__(self, sv, max_det: int = 4, scale: float = 1.0):
+        self.sv = sv
+        self.max_det = int(max_det)
+        self.scale = float(scale)
+
+    def detect_batch(self, frames, valid, frame_idxs=None):
+        b = frames.shape[0]
+        h, w = frames.shape[1], frames.shape[2]
+        boxes = np.zeros((b, self.max_det, 4), np.float32)
+        scores = np.zeros((b, self.max_det), np.float32)
+        mask = np.zeros((b, self.max_det), bool)
+        if frame_idxs is None:
+            frame_idxs = np.arange(b)
+        for i in range(b):
+            if not valid[i]:
+                continue
+            pls = self.sv.truth.get(int(frame_idxs[i]), [])
+            for j, pl in enumerate(pls[: self.max_det]):
+                x1, y1, x2, y2 = (v * self.scale for v in pl.box)
+                fw, fh = x2 - x1, y2 - y1
+                boxes[i, j] = [max(0, x1 - fw), max(0, y1 - 0.5 * fh),
+                               min(w, x2 + fw), min(h, y2 + 4 * fh)]
+                scores[i, j] = 0.9
+                mask[i, j] = True
+        return {"boxes": boxes, "scores": scores, "mask": mask}
+
+
+class OracleBackend:
+    """Ground-truth backend over a synthetic video.
+
+    Embeddings are deterministic unit vectors per identity (plus tiny
+    box-position-seeded jitter), so bank/threshold logic behaves like real
+    embeddings with ~0 intra-identity distance and ~1.0 cross-identity.
+    """
+
+    def __init__(self, sv, embed_dim: int = 64, max_faces: int = 4,
+                 scale: float = 1.0, noise: float = 0.0):
+        self.sv = sv
+        self.embed_dim = int(embed_dim)
+        self.max_faces = int(max_faces)
+        self.scale = float(scale)  # reader downscale vs truth coords
+        self.noise = float(noise)
+
+    def identity_feat(self, identity: int) -> np.ndarray:
+        v = np.zeros(self.embed_dim, np.float32)
+        v[identity % self.embed_dim] = 1.0
+        return v
+
+    def extract_batch(self, frames, valid, frame_idxs=None):
+        b = frames.shape[0]
+        f = self.max_faces
+        boxes = np.zeros((b, f, 4), np.float32)
+        kps = np.zeros((b, f, 5, 2), np.float32)
+        scores = np.zeros((b, f), np.float32)
+        mask = np.zeros((b, f), bool)
+        feats = np.zeros((b, f, self.embed_dim), np.float32)
+        quality = np.zeros((b, f), np.float32)
+        if frame_idxs is None:
+            frame_idxs = np.arange(b)
+        for i in range(b):
+            if not valid[i]:
+                continue
+            pls = self.sv.truth.get(int(frame_idxs[i]), [])
+            for j, pl in enumerate(pls[:f]):
+                boxes[i, j] = np.asarray(pl.box, np.float32) * self.scale
+                kps[i, j] = pl.kps * self.scale
+                scores[i, j] = 0.99
+                mask[i, j] = True
+                v = self.identity_feat(pl.identity)
+                if self.noise:
+                    rng = np.random.default_rng(
+                        int(frame_idxs[i]) * 131 + j)
+                    v = v + rng.normal(0, self.noise, v.shape).astype(np.float32)
+                feats[i, j] = v / np.linalg.norm(v)
+                quality[i, j] = 500.0
+        return {"boxes": boxes, "kps": kps, "scores": scores,
+                "mask": mask, "feats": feats, "quality": quality}

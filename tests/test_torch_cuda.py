@@ -337,3 +337,119 @@ def test_curation_run_on_the_card(cuda, tmp_path, monkeypatch):
     got, want = picked(out), picked(cpu_out)
     print("card only:", sorted(got - want), "CPU only:", sorted(want - got))
     assert got and len(got ^ want) <= 2 and abs(len(got) - len(want)) <= 1
+
+
+# ---- the trainers, the running statistics and host alignment ----
+
+TRAINERS = {
+    "scrfd_synth": dict(cfg_name="scrfd_tiny", size=64, batch=4),
+    "yolo_synth": dict(cfg_name="yolo_tiny", size=64, batch=4),
+    "yolo_face_synth": dict(cfg_name="yolo_face_tiny", size=64, batch=4),
+    "arcface_synth": dict(cfg_name="arcface_tiny", batch=4, num_ident=8),
+    "clip_reid_synth": dict(cfg_name="clip_tiny", batch=4, num_ident=8),
+}
+
+
+@pytest.fixture
+def no_tf32():
+    """Card against CPU: fp32 convolutions and matmuls without TF32."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TRAINERS))
+def test_train_steps_on_the_card_match_the_cpu(cuda, no_tf32, name):
+    """Three steps of each trainer family at tiny width from the same init
+    and batches: losses rel ≤ 1e-4, parameters within 2·Σ lr_k (Adam moves
+    an element whose gradient is rounding noise by up to lr a step)."""
+    import importlib
+
+    import numpy as np
+
+    from person_capture_tpu_torch.models.bridge import flax_variables
+    from person_capture_tpu_torch.tools.weights import flatten_tree
+    from person_capture_tpu_torch.train.loop import warmup_cosine
+
+    mod = importlib.import_module(f"person_capture_tpu_torch.train.{name}")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        run = mod.setup(steps=3, seed=2, device=dev, **TRAINERS[name])
+        losses = [float(run.step(i)["loss"]) for i in range(3)]
+        out[dev] = losses, flatten_tree(flax_variables(run.state.model))
+    lr = run.state.sched.base_lrs[0]
+    np.testing.assert_allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4)
+    tol = 2 * sum(warmup_cosine(i, lr, 3) for i in range(3))
+    for k, want in out["cpu"][1].items():
+        np.testing.assert_allclose(out["cuda"][1][k], want, rtol=1e-4,
+                                   atol=tol if k.startswith("params/")
+                                   else 1e-4, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_flax_batchnorm_statistics_on_the_card(cuda):
+    """The training step writes flax's running statistics on the card:
+    momentum 0.99 and the biased batch variance (ArcFace's final
+    BatchNorm1d at its batch of 48)."""
+    from person_capture_tpu_torch.models.layers import BatchNorm1d
+
+    g = torch.Generator(cuda).manual_seed(0)
+    x = torch.randn(48, 256, device=cuda, generator=g) * 2 + 1
+    bn = BatchNorm1d(256, eps=1e-5, momentum=0.01).to(cuda).train()
+    bn(x)
+    torch.cuda.synchronize()
+    var = x.var(0, unbiased=False)
+    assert torch.allclose(bn.running_var, 0.99 + 0.01 * var, rtol=1e-6)
+    assert torch.allclose(bn.running_mean, 0.01 * x.mean(0), rtol=1e-5,
+                          atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_host_align_on_the_card(cuda, no_tf32):
+    """Detect on the card, cv2 warp on the host, embed on the card: the
+    same slots as the fused chain from the same BGR frames, cosine ≥ 0.99
+    (reflect-border cv2 warp against the device warp), and ≥ 0.9999 to the
+    same mode on the CPU."""
+    import numpy as np
+
+    from person_capture_tpu_torch.models import arcface as AF
+    from person_capture_tpu_torch.models import scrfd as SD
+    from person_capture_tpu_torch.models.zoo import resolve_weights
+    from person_capture_tpu_torch.pipeline.backends import \
+        ScrfdArcFaceBackend
+    from person_capture_tpu_torch.video.synthetic import (FacePlacement,
+                                                          draw_face)
+
+    frames = np.full((2, 320, 320, 3), 60, np.uint8)
+    for k in range(2):
+        draw_face(frames[k], FacePlacement(k, 0, (40 + 9 * k, 40, 104, 120)))
+        draw_face(frames[k], FacePlacement(k, 1, (190, 150, 250, 226)))
+    kw = dict(det_size=320, dtype=torch.float32,
+              scrfd_weights=resolve_weights("auto", "scrfd_2.5g"),
+              arcface_weights=resolve_weights("auto", "arcface_synth"))
+    valid = np.ones(2, bool)
+    host = ScrfdArcFaceBackend(SD.SCRFD_2_5G, AF.SYNTH_R18, device=cuda,
+                               host_align=True, **kw)
+    got = host.submit_batch(frames, valid)()
+    fused = ScrfdArcFaceBackend(SD.SCRFD_2_5G, AF.SYNTH_R18, device=cuda,
+                                transfer_format="bgr", **kw
+                                ).extract_batch(frames, valid)
+    cpu = ScrfdArcFaceBackend(SD.SCRFD_2_5G, AF.SYNTH_R18, device="cpu",
+                              host_align=True, **kw
+                              ).extract_batch(frames, valid)
+    m = got["mask"]
+    assert m.sum() == 4
+    np.testing.assert_array_equal(fused["mask"], m)
+    np.testing.assert_array_equal(cpu["mask"], m)
+
+    def cos(a, b):
+        return (a * b).sum(-1) / (np.linalg.norm(a, axis=-1)
+                                  * np.linalg.norm(b, axis=-1))
+
+    assert (cos(got["feats"][m], fused["feats"][m]) >= 0.99).all()
+    assert (cos(got["feats"][m], cpu["feats"][m]) >= 0.9999).all()

@@ -23,6 +23,7 @@ import importlib, pkgutil, sys
 import numpy as np
 import torch
 import person_capture_tpu_torch as P
+torch.set_num_threads(1)   # one of several test workers on the machine
 
 names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + ".")]
 for name in names:
@@ -115,6 +116,39 @@ with tempfile.TemporaryDirectory() as d:
     assert classify_error("CUDA error: device-side assert") == "backend"
     assert doctor.check_weights()["ok"]
     assert sweep.expand_videos([d]) == []
+    # trainers, FLOP accounting, facades, host alignment, oracles
+    from person_capture_tpu_torch.train import arcface_synth, scrfd_synth
+    from person_capture_tpu_torch.utils import mfu
+    out = os.path.join(d, "s.npz")
+    assert scrfd_synth.main(["--cfg", "scrfd_tiny", "--size", "64",
+                             "--batch", "2", "--steps", "2", "--device",
+                             "cpu", "--out", out,
+                             "--ckpt-dir", os.path.join(d, "ck")]) == 0
+    assert arcface_synth.setup("arcface_tiny", batch=2, steps=2,
+                               num_ident=4, device="cpu").step(0)[
+        "loss"].isfinite()
+    assert np.load(out)["params/_Head_0/Conv_1/bias"].dtype == np.float16
+    assert mfu.program_cost(lambda a: a @ a, torch.ones(4, 4))["flops"] \
+        == 128
+    from person_capture_tpu_torch.face_embedder import FaceEmbedder
+    from person_capture_tpu_torch.detectors import PersonDetector
+    from person_capture_tpu_torch.reid_embedder import ReIDEmbedder
+    from person_capture_tpu_torch.pipeline.backends import (
+        OracleBackend, OraclePersonBackend)
+    ha = ScrfdArcFaceBackend(SD.TINY, AF.TINY, det_size=64, max_faces=4,
+                             dtype=torch.float32, device="cpu",
+                             host_align=True)
+    assert ha.extract_batch(frames, np.ones(2, bool))["feats"].shape == \
+        (2, 4, AF.TINY.embed_dim)
+    assert isinstance(FaceEmbedder(backend=be).extract(frames[0]), list)
+    assert isinstance(PersonDetector(backend=pb).detect(frames[0]), list)
+    assert len(ReIDEmbedder(backend=rb).extract([frames[0]])) == 1
+    from person_capture_tpu_torch.video.synthetic import SyntheticVideo
+    sv = SyntheticVideo("", 64, 48, 30.0, 2)
+    assert not OracleBackend(sv).extract_batch(frames, np.ones(2, bool))[
+        "mask"].any()
+    assert OraclePersonBackend(sv).detect_batch(
+        frames, np.ones(2, bool))["boxes"].shape == (2, 4, 4)
 
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)

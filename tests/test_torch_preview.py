@@ -6,8 +6,8 @@ packages (≤ 1 LSB: one rounding step of the 8-bit output), and the port's
 tests/test_preview.py: previews come from a dedicated P010 source through
 the tone-map, equal to ``tonemap_preview_frame`` on their planes; a render
 error fails the run; only missing planes fall back to the analysis frame.
-The engine runs take the JAX package's ``OracleBackend``, which is numpy
-only: it stands in for the face models, which play no part here.
+The engine runs take the port's ``OracleBackend`` (numpy ground truth):
+it stands in for the face models, which play no part here.
 """
 
 import numpy as np
@@ -17,11 +17,12 @@ torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
 from person_capture_tpu import hdr_preview as JP  # noqa: E402
-from person_capture_tpu.pipeline.backends import OracleBackend  # noqa: E402
 from person_capture_tpu_torch import hdr_preview as TP  # noqa: E402
 from person_capture_tpu_torch.config import SessionConfig  # noqa: E402
 from person_capture_tpu_torch.core.bank import RefBank  # noqa: E402
 from person_capture_tpu_torch.hdr.exporter import ArrayP010Source  # noqa: E402
+from person_capture_tpu_torch.pipeline.backends import \
+    OracleBackend  # noqa: E402
 from person_capture_tpu_torch.pipeline.engine import Engine  # noqa: E402
 from person_capture_tpu_torch.video.synthetic import \
     generate_video  # noqa: E402
