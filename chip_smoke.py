@@ -112,10 +112,34 @@ non-zero without printing a result:
               fused chain on 8 of its frames (both from BGR): the same
               slots, cosine ≥ 0.99, both timed in turns.
 
-Phases 8 to 14 reach no hand-written kernel beyond the tone-map: the CLIP
+15. gui     — the GUI shell (``gui_app.MainWindow``) under the repo's
+              fake Qt (``tests/fake_qt.py``, loaded by path and installed as
+              ``PySide6``), its default backend (SCRFD-2.5G and ArcFace
+              SYNTH_R18 bundled, det 640, bf16) on the card, phase 4's
+              fixture with phase 4's settings typed into the window, run
+              through ``on_start``: ``finished(True, "")`` within a time
+              limit, hits in the truth spans and every span hit, previews
+              through the ``preview`` signal, more fused launches than phase
+              4 (the preview pump renders through the fused entry too), and
+              a live setting pushed mid-run drained by the engine;
+16. mesh    — (a) phase 4 with ``--mesh data:1``: the sharded backend's
+              hit frames equal phase 4's; (b) the sharded pre-scan step on
+              ``make_mesh("data:2,model:2", devices=[cuda:0] * 4)`` (two
+              replicas on the one card, each with its wide layers split in
+              two) against the unsharded backend on one 64-frame batch of
+              the fixture: masks and slots identical, the same ``best_fd``
+              decisions, ``best_fd`` within 2e-2 and boxes within 0.5 px,
+              both timed in turns; (c) two processes of the CLI on the one
+              card (``PERSON_CAPTURE_SHARE_CARDS=1``) with ``--multihost
+              --coordinator 127.0.0.1:<port> --num-processes 2 --mesh
+              data:2``: both exit 0 within their time limit, and
+              ``out/index.csv`` and ``out/.proc1/index.csv`` hold phase 4's
+              frames.
+
+Phases 8 to 16 reach no hand-written kernel beyond the tone-map: the CLIP
 tower, the curator's pHash and MMR, the ONNX interpreter, the loaders, the
-sweep, the doctor and the train steps are torch ops and host code, as they
-are XLA ops and host code in the JAX package. Each phase's tone-map
+sweep, the doctor, the train steps, the GUI and the mesh are torch ops and
+host code, as they are XLA ops and host code in the JAX package. Each phase's tone-map
 launches are counted from 0 just before its run and printed in the
 ``kernels`` line.
 
@@ -1623,6 +1647,324 @@ def phase_train_facades(fixture) -> dict:
             "batch_ms": times}
 
 
+# phase 15: the settings of phase 4's CLI run, typed into the window — the
+# Capture tab's quick controls and the generated All-settings fields
+GUI_QUICK = {"ratio": "2:3", "face_thresh": 0.32, "min_gap": 0.0,
+             "frame_stride": 2}
+GUI_FIELDS = {"compose_detect_person_for_face": False,
+              "hdr_sdr_quality": "fast", "hdr_sdr_contrast_recovery": 0.0,
+              "prescan_cache_mode": "off", "tpu_batch_frames": 64}
+GUI_TIMEOUT_S = 300
+
+
+def load_fake_qt():
+    """``tests/fake_qt.py`` by file path, installed as ``PySide6``."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "fake_qt.py")
+    spec = importlib.util.spec_from_file_location("fake_qt", path)
+    fake_qt = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(fake_qt)
+    fake_qt.install()
+    return fake_qt
+
+
+def _set_widget(widget, value):
+    if isinstance(value, bool):
+        widget.setChecked(value)
+    elif isinstance(value, (int, float)):
+        widget.setValue(value)
+    else:
+        widget.setText(value)
+
+
+def phase_gui(work: str, fixture, phase4_launches: dict, phase4_frames):
+    """Phase 15: the window with its default backend on the card, driven
+    through ``on_start`` on phase 4's fixture."""
+    import threading
+    from functools import partial
+
+    load_fake_qt()
+    from person_capture_tpu_torch import gui_app
+    from person_capture_tpu_torch.pipeline.engine import Engine
+
+    vid, ref_path, truth = fixture[:3]
+    out = os.path.join(work, "out_gui")
+    seen = {"finished": [], "previews": 0, "pushed_running": False}
+    lock = threading.Lock()
+    running, finished = threading.Event(), threading.Event()
+
+    class Bridge(gui_app.EngineBridge):
+        """The window's bridge with the harness's listeners on its
+        ``finished`` and ``preview`` signals."""
+
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.finished.connect(self._on_finished)
+            self.preview.connect(self._on_preview)
+            self.status.connect(lambda m: running.set())
+
+        def _on_finished(self, ok, err):
+            seen["finished"].append((ok, err))
+            finished.set()
+
+        def _on_preview(self, img, idx):
+            with lock:
+                seen["previews"] += 1
+
+    # the HDR stills read P010 planes from the fixture, as in phase 4
+    bridge_cls, engine_cls = gui_app.EngineBridge, gui_app.Engine
+    gui_app.EngineBridge = Bridge
+    gui_app.Engine = partial(
+        Engine, hdr_source_factory=lambda video, w, h, fps:
+        _P010FromVideo(video))
+    try:
+        t0 = time.perf_counter()
+        win = gui_app.MainWindow()
+        win.video_edit.setText(vid)
+        win.ref_list.addItem(ref_path)
+        win.out_edit.setText(out)
+        win.ratio_edit.setText(GUI_QUICK["ratio"])
+        win.face_thresh.setValue(GUI_QUICK["face_thresh"])
+        win.min_gap.setValue(GUI_QUICK["min_gap"])
+        win.frame_stride.setValue(GUI_QUICK["frame_stride"])
+        win.prescan_enable.setChecked(True)
+        win.curate_enable.setChecked(False)
+        for name, value in GUI_FIELDS.items():
+            _set_widget(win._field_widgets[name][0], value)
+        setup_s = time.perf_counter() - t0
+        reset_launches()
+        t0 = time.perf_counter()
+        win.on_start()
+        require(win.cfg.device == "cuda", f"device {win.cfg.device}")
+        # a LIVE key pushed from the settings tab once the engine reports
+        # its first status: it polls its command queue between the
+        # pre-scan's batches and the main pass's frames
+        if running.wait(GUI_TIMEOUT_S):
+            seen["pushed_running"] = win.bridge._thread.is_alive()
+            win._field_widgets["preview_every"][0].setValue(2)
+        require(finished.wait(GUI_TIMEOUT_S),
+                f"the GUI run did not finish within {GUI_TIMEOUT_S} s")
+        run_s = time.perf_counter() - t0
+        win.bridge._thread.join(timeout=60)
+        launches = read_launches()
+    finally:
+        gui_app.EngineBridge, gui_app.Engine = bridge_cls, engine_cls
+    require(seen["finished"] == [(True, "")],
+            f"finished signals {seen['finished']}")
+    rows = check_stills(out, truth)
+    frames = [int(r["frame"]) for r in rows]
+    eng = win.bridge._engine
+    require(seen["previews"] >= 1, "no preview through the preview signal")
+    require(launches["hdr_to_sdr_bgr"] > phase4_launches["hdr_to_sdr_bgr"],
+            f"{launches['hdr_to_sdr_bgr']} fused launches, not more than "
+            f"phase 4's {phase4_launches['hdr_to_sdr_bgr']}")
+    require(seen["pushed_running"] and eng._cmd_q.empty()
+            and eng.cfg.preview_every == 2,
+            "the live push did not reach the running engine")
+    emit(phase="gui", hits=len(rows), hit_frames=frames,
+         same_frames_as_phase4=frames == phase4_frames,
+         previews=seen["previews"], launches=launches,
+         live_push_while_running=seen["pushed_running"],
+         setup_seconds=setup_s, seconds=run_s)
+    return launches
+
+
+MESH_CHILD_TIMEOUT_S = 300
+
+
+def cli_child(argv) -> int:
+    """One process of phase 16(c): the CLI's own sequence (``build_config``
+    → ``maybe_init_multihost`` → ``build_runtime`` → ``make_engine`` →
+    ``run``) with phase 4's P010 source for the stills; prints its fused
+    launches and hits as one JSON line."""
+    from person_capture_tpu_torch import main as M
+
+    ap = M.build_parser()
+    args = ap.parse_args(argv)
+    cfg = M.build_config(args, ap)
+    M.maybe_pin_platform(cfg)
+    cfg.out_dir = M.maybe_init_multihost(args, cfg.out_dir)
+    t0 = time.perf_counter()
+    eng = M.make_engine(cfg, M.build_runtime(cfg, args, ap),
+                        status=lambda m: None)
+    eng.hdr_source_factory = lambda video, w, h, fps: _P010FromVideo(video)
+    reset_launches()
+    res = eng.run()
+    emit(child=True, ok=res.ok, error=res.error, out=cfg.out_dir,
+         launches=read_launches(), seconds=time.perf_counter() - t0)
+    return 0 if res.ok else 1
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _index_frames(out: str) -> list:
+    import csv
+
+    with open(os.path.join(out, "index.csv")) as fh:
+        return [int(r["frame"]) for r in csv.DictReader(fh)]
+
+
+def sharded_vs_unsharded(fixture) -> dict:
+    """Phase 16(b): the sharded step on four mesh entries of one card (two
+    replicas, each split in two) against the unsharded backend on one
+    64-frame batch of the fixture."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from person_capture_tpu_torch.core.bank import fd_min_batch
+    from person_capture_tpu_torch.models import arcface as AF
+    from person_capture_tpu_torch.models.zoo import resolve_weights
+    from person_capture_tpu_torch.parallel.mesh import (
+        build_sharded_prescan_step, make_mesh)
+    from person_capture_tpu_torch.pipeline.backends import (
+        ScrfdArcFaceBackend, extract_single_image)
+
+    vid, ref_path, truth = fixture[:3]
+    cap = cv2.VideoCapture(os.path.join(os.path.dirname(vid), "sdr.mp4"))
+    frames = []
+    while len(frames) < 64:
+        ok, frame = cap.read()
+        require(ok, "the fixture ran out of frames")
+        if int(cap.get(cv2.CAP_PROP_POS_FRAMES) - 1) % 2 == 0:
+            frames.append(frame)
+    cap.release()
+    frames = np.stack(frames)
+    weights = dict(scrfd_weights=resolve_weights("auto", "scrfd_2.5g"),
+                   arcface_weights=resolve_weights("auto", "arcface_synth"))
+    single = ScrfdArcFaceBackend(arcface_cfg=AF.SYNTH_R18, det_size=640,
+                                 dtype=torch.bfloat16, device="cuda",
+                                 transfer_format="bgr", **weights)
+    ref = extract_single_image(single, cv2.imread(ref_path))
+    require(ref["mask"][0].any(), "no face in the reference")
+    bank = ref["feats"][0][ref["mask"][0]][:1].astype(np.float32)
+    bank_mask = np.ones(1, bool)
+    mesh = make_mesh("data:2,model:2", devices=[torch.device("cuda", 0)] * 4)
+    run = build_sharded_prescan_step(
+        mesh, arcface_cfg=AF.SYNTH_R18, det_size=640, max_faces=8,
+        dtype=torch.bfloat16, scrfd_vars=weights["scrfd_weights"],
+        arcface_vars=weights["arcface_weights"])
+    got = {k: v.cpu().numpy() for k, v in
+           run(frames, bank, bank_mask, score_thresh=0.5).items()}
+    want = single.extract_batch(frames, np.ones(64, bool))
+    _, best = fd_min_batch(torch.from_numpy(want["feats"]),
+                           torch.from_numpy(want["mask"]),
+                           torch.from_numpy(bank), torch.from_numpy(bank_mask))
+    best = best.numpy()
+    m = want["mask"]
+    require(np.array_equal(got["mask"], m),
+            f"masks differ in {int((got['mask'] != m).sum())} slots")
+    require(m.any(), "no face in the batch")
+    thresh = GUI_QUICK["face_thresh"]
+    require(np.array_equal(got["best_fd"] < thresh, best < thresh),
+            "best_fd decisions differ")
+    fd_err = float(np.abs(got["best_fd"] - best).max())
+    box_err = float(np.abs(got["boxes"][m] - want["boxes"][m]).max())
+    require(fd_err <= 2e-2, f"best_fd differs by {fd_err}")
+    require(box_err <= 0.5, f"boxes differ by {box_err} px")
+    times = in_turns({
+        "sharded": lambda: run(frames, bank, bank_mask, 0.5),
+        "unsharded": lambda: single.extract_batch(frames,
+                                                  np.ones(64, bool))},
+        timer=partial_wall_ms)
+    return dict(faces=int(m.sum()), frames_with_face=int(m.any(1).sum()),
+                matches=int((best < thresh).sum()), best_fd_max_err=fd_err,
+                box_max_err_px=box_err, replicas=len(run.replicas),
+                column_parallel_layers=sum(
+                    type(mod).__name__ == "ColumnParallel"
+                    for mod in run.replicas[0].scrfd_model.modules()),
+                batch_ms=times)
+
+
+def partial_wall_ms(fn):
+    return wall_ms(fn, reps=5, warmup=2)
+
+
+def phase_mesh(work: str, fixture, phase4_frames) -> dict:
+    """Phase 16: the inference mesh and a 2-process run on the one card."""
+    t0 = time.perf_counter()
+    run = run_cli(work, "mesh", fixture[:3], SLICE_SETS,
+                  flags=("--mesh", "data:1"))
+    mesh_s = time.perf_counter() - t0
+    require(run["hit_frames"] == phase4_frames,
+            f"--mesh data:1 frames {run['hit_frames']} != phase 4's")
+    require(type(run["runtime"]["inner_face"]).__name__
+            == "ShardedScrfdArcFaceBackend", "the mesh run was not sharded")
+
+    t0 = time.perf_counter()
+    step = sharded_vs_unsharded(fixture)
+    step_s = time.perf_counter() - t0
+
+    vid, ref_path = fixture[:2]
+    out = os.path.join(work, "out_multihost")
+    port = _free_port()
+    argv = ["--video", vid, "--ref", ref_path, "--out", out, "--prescan",
+            "--mesh", "data:2", "--multihost", "--coordinator",
+            f"127.0.0.1:{port}", "--num-processes", "2",
+            "--set", "prescan_cache_mode=off"]
+    for setting in SLICE_SETS:
+        argv += ["--set", setting]
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = "import sys, chip_smoke; sys.exit(chip_smoke.cli_child(sys.argv[1:]))"
+    # both processes compute on the one card, on purpose
+    env = dict(os.environ, PERSON_CAPTURE_SHARE_CARDS="1")
+    t0 = time.perf_counter()
+    # output to files: a child blocked on a full pipe would stall the other
+    # one in the collectives
+    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+            for _ in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", code, *argv,
+                               "--process-id", str(i)], cwd=here, env=env,
+                              stdout=so, stderr=se, text=True)
+             for i, (so, se) in enumerate(logs)]
+    children = []
+    try:
+        for i, (p, (so, se)) in enumerate(zip(procs, logs)):
+            try:
+                p.wait(timeout=MESH_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"check failed: process {i} ran past "
+                                   f"{MESH_CHILD_TIMEOUT_S} s")
+            so.seek(0)
+            se.seek(0)
+            so, se = so.read(), se.read()
+            require(p.returncode == 0, f"process {i} exited "
+                    f"{p.returncode}:\n{so[-2000:]}\n{se[-2000:]}")
+            children.append(json.loads(
+                [ln for ln in so.splitlines() if '"child"' in ln][-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for so, se in logs:
+            so.close()
+            se.close()
+    multi_s = time.perf_counter() - t0
+    primary = _index_frames(out)
+    secondary = _index_frames(os.path.join(out, ".proc1"))
+    require(primary == secondary,
+            f"ranks differ: {primary} != {secondary}")
+    require(primary == phase4_frames,
+            f"2-process frames {primary} != phase 4's {phase4_frames}")
+    emit(phase="mesh", data1_hit_frames=run["hit_frames"],
+         data1_launches=run["launches"], data1_seconds=mesh_s,
+         data1_run_seconds=run["seconds"], step=step, step_seconds=step_s,
+         multihost_hit_frames=primary,
+         multihost_launches=[c["launches"] for c in children],
+         multihost_run_seconds=[c["seconds"] for c in children],
+         multihost_seconds=multi_s)
+    return run["launches"], [c["launches"] for c in children]
+
+
 def main() -> int:
     import torch
 
@@ -1641,6 +1983,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_",
                                      dir=scratch) as work:
         rows, launches, fixture = phase_pipeline(work)
+        phase4_frames = [int(r["frame"]) for r in rows]
         phase_preview(work, fixture)
         planar_err, still = phase_main_path_shape(rows)
         defaults_launches, body_fixture = phase_defaults(work)
@@ -1651,7 +1994,10 @@ def main() -> int:
                  "diag": phase_diag(work, fixture[:3]),
                  "onnx": phase_onnx(work, fixture),
                  "sweep": phase_sweep(work, body_fixture, curate_hits),
-                 "train": phase_train(work, fixture)}
+                 "train": phase_train(work, fixture),
+                 "gui": phase_gui(work, fixture, launches, phase4_frames)}
+        later["mesh"], mesh_processes = phase_mesh(work, fixture,
+                                                   phase4_frames)
     source = "person_capture_tpu_torch/csrc/tonemap.cu"
     replaces = "person_capture_tpu/kernels/hdr.py:217"
 
@@ -1664,6 +2010,8 @@ def main() -> int:
         "replaces": replaces, "launches": launches["hdr_to_sdr_bgr"],
         "launches_defaults": defaults_launches["hdr_to_sdr_bgr"],
         **later_launches("hdr_to_sdr_bgr"),
+        "launches_mesh_processes": [c["hdr_to_sdr_bgr"]
+                                    for c in mesh_processes],
         "max_abs_err": max(fused["max_lsb"], still["max_lsb"]),
         "max_abs_err_unit": "8-bit steps",
         "max_differing_share": max(fused["max_differing_share"],
@@ -1681,6 +2029,8 @@ def main() -> int:
         "replaces": replaces, "launches": launches["tonemap_planes"],
         "launches_defaults": defaults_launches["tonemap_planes"],
         **later_launches("tonemap_planes"),
+        "launches_mesh_processes": [c["tonemap_planes"]
+                                    for c in mesh_processes],
         "max_abs_err": max(planar["max_abs_err"], planar_err),
         "ms": planar["ms"], "plain_ms": planar["plain_ms"],
         "bound_ms": planar["bound_ms"], "bound_by": planar["bound_by"],

@@ -19,7 +19,9 @@ Layering:
   hdr/       full-resolution HDR→SDR still export, speckle diagnostics
   tools/     checkpoint IO and conversion, the ONNX reader/writer,
              interpreter and exporter
-  main.py, sweep.py, doctor.py, curator/   the entry points
+  parallel/  device mesh, sharded pre-scan step, multi-process helpers
+  main.py, sweep.py, doctor.py, gui_app.py, curator/   the entry points
+             (gui_app.py needs PySide6; updater.py serves its update menu)
 """
 
 __version__ = "0.1.0"

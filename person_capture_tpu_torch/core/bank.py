@@ -155,3 +155,29 @@ class RefBank:
             return "replaced", worst
         return "skip", None
 
+
+
+def fd_min_batch(feats, feat_mask, bank, bank_mask):
+    """Batched masked fd-vs-bank on the device (``fd_min_batch_jnp`` of the
+    JAX package).
+
+    Args:
+      feats:     ``[B, F, D]`` face embeddings (unnormalized OK).
+      feat_mask: ``[B, F]`` bool — which face slots are real.
+      bank:      ``[K, D]`` bank matrix (padded), rows L2-normalized.
+      bank_mask: ``[K]`` bool — which bank rows are real.
+    Returns:
+      (per_face_fd ``[B, F]``, best_fd ``[B]``) float32 with FD_NONE
+      sentinels for masked entries, matching host :func:`fd_min` semantics.
+    """
+    import torch
+
+    f = feats.float()
+    f = f / torch.clamp(torch.linalg.norm(f, dim=-1, keepdim=True), min=1e-6)
+    sims = torch.einsum("bfd,kd->bfk", f, bank.float())
+    sims = torch.where(bank_mask[None, None, :], sims,
+                       torch.full((), -float("inf"), device=sims.device))
+    fd = 1.0 - torch.amax(sims, dim=-1)
+    fd = torch.where(feat_mask & bank_mask.any(), fd,
+                     torch.full((), FD_NONE, device=fd.device))
+    return fd, torch.amin(fd, dim=-1)

@@ -7,9 +7,9 @@ Runs on the CUDA device unless ``--device cpu`` is given. Weights load
 from the bundled or user flax ``.npz`` files, converted torch dumps
 (``tools/convert_weights.py``), ultralytics and open_clip ``.pt`` state
 dicts (``models/loaders.py``) and insightface ONNX graphs
-(``models/onnx_zoo.py``). The branches the port does not carry yet (the
-device mesh and multi-host) raise ``ValueError`` in :func:`build_runtime`
-naming the setting to change; nothing is silently left out.
+(``models/onnx_zoo.py``). ``--mesh`` splits each batch over several
+devices (parallel/mesh.py), and ``--multihost`` runs the same command in
+several processes, each computing its share (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -66,12 +66,15 @@ def build_parser(require_video: bool = True) -> argparse.ArgumentParser:
                     help="ReID tower checkpoint: .npz | open_clip .pt | "
                          "auto (bundled trained clip_reid_s) | random")
     ap.add_argument("--mesh", default="",
-                    help="device mesh spec (not ported to torch yet); "
+                    help="device mesh spec, e.g. 'data:4,model:2'; "
                          "''=1 device")
-    # multi-host flags are kept for the shared flag surface; the torch
-    # port refuses them (build_runtime) until multi-GPU is ported
+    # multi-host: run the same command in every process. Under torchrun
+    # the address comes from its environment (pass --multihost alone);
+    # manual clusters pass all three (parallel/multihost.py)
     ap.add_argument("--multihost", action="store_true", default=False,
-                    help="multi-host run (not ported to torch yet)")
+                    help="join the torch.distributed process group "
+                         "(torchrun's environment when the address flags "
+                         "are unset)")
     ap.add_argument("--coordinator", default="",
                     help="coordinator address host:port (multi-host)")
     ap.add_argument("--num-processes", type=int, default=0,
@@ -205,22 +208,36 @@ def maybe_enable_compile_cache(cfg) -> None:
 
 
 def maybe_init_multihost(args, out_dir: str) -> str:
-    """The output root this process writes under. Multi-host is not ported:
-    :func:`check_ported` refuses it when the runtime is built."""
+    """Join the process group when requested; returns the output root this
+    process should write under.
+
+    Must run BEFORE the first backend is built (the mesh lists every
+    process's devices). Every process runs the identical pipeline; only the
+    primary writes user-visible outputs — the others keep their
+    (deterministic, identical) artifacts in a scratch subdir so shared
+    filesystems never see write races."""
+    if not (args.multihost or args.coordinator):
+        return out_dir
+    from .parallel import multihost as MH
+
+    MH.initialize(
+        coordinator=args.coordinator or None,
+        num_processes=args.num_processes if args.num_processes > 0
+        else None,
+        process_id=args.process_id if args.process_id >= 0 else None)
+    if not MH.is_primary():
+        out_dir = os.path.join(out_dir, f".proc{MH.process_index()}")
     return out_dir
 
 
-def _unported(what: str, setting: str):
-    return ValueError(f"{what} is not ported to torch yet; {setting}")
-
-
 def check_ported(cfg, args) -> None:
-    """Refuse, up front, every branch of the JAX runtime this port does not
-    carry yet, naming the setting that avoids it."""
+    """Refuse, up front, the one branch of the JAX runtime this port does
+    not carry, naming the setting that avoids it: a ``model`` mesh axis
+    that spans processes (``parallel/mesh.Mesh.replica_owners``)."""
     if cfg.tpu_mesh:
-        raise _unported("the device mesh", "drop --mesh")
-    if args.multihost or args.coordinator:
-        raise _unported("multi-host", "drop --multihost/--coordinator")
+        from .parallel.mesh import make_mesh
+
+        make_mesh(cfg.tpu_mesh, device=cfg.device).replica_owners()
 
 
 def resolve_yolo(yolo_model: str):
@@ -302,10 +319,12 @@ def build_runtime(cfg, args, ap) -> dict:
     from .models import yolov8 as YV
     from .models.zoo import bundled_weights_path, resolve_weights
     from .pipeline.backends import (ClipReidBackend, LazyBackend,
-                                    ScrfdArcFaceBackend, YoloPersonBackend)
+                                    ScrfdArcFaceBackend,
+                                    ShardedScrfdArcFaceBackend,
+                                    YoloPersonBackend)
 
-    check_ported(cfg, args)
     device = resolve_device(cfg)
+    check_ported(cfg, args)
     dtype = (torch.bfloat16 if cfg.tpu_compute_dtype == "bfloat16"
              else torch.float32)
 
@@ -351,6 +370,14 @@ def build_runtime(cfg, args, ap) -> dict:
                      else CV.CONFIGS.get(cfg.clip_face_backbone))
 
     def face_backend(det_size: int, embed_slots: int = 0):
+        if cfg.tpu_mesh:
+            return ShardedScrfdArcFaceBackend(
+                mesh_spec=cfg.tpu_mesh, scrfd_cfg=face_cfg,
+                arcface_cfg=arc_cfg, det_size=det_size,
+                score_thresh=cfg.face_det_conf, max_faces=cfg.tpu_max_faces,
+                use_arcface=cfg.use_arcface, clip_face_cfg=clip_face_cfg,
+                embed_slots=embed_slots, dtype=dtype, device=device,
+                scrfd_weights=scrfd_w, arcface_weights=arc_w)
         return ScrfdArcFaceBackend(
             scrfd_cfg=face_cfg, arcface_cfg=arc_cfg, det_size=det_size,
             score_thresh=cfg.face_det_conf, max_faces=cfg.tpu_max_faces,
@@ -363,7 +390,8 @@ def build_runtime(cfg, args, ap) -> dict:
     # high-imgsz full-frame re-probe backend (reference full-frame face
     # short-circuit): the same module at another size, built on first use.
     # It mirrors the primary's embedder: a CLIP-face primary with an
-    # ArcFace rescue would score one RefBank in two embedding spaces
+    # ArcFace rescue would score one RefBank in two embedding spaces. Mesh
+    # runs get the same rescue with its batch data-parallel over the mesh
     fullframe_backend = None
     if (cfg.face_fullframe_when_missed
             and int(cfg.face_fullframe_imgsz) > int(args.det_size)):
@@ -429,6 +457,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     cfg = build_config(args, ap)
+    maybe_pin_platform(cfg)
+    cfg.out_dir = maybe_init_multihost(args, cfg.out_dir)
     runtime = build_runtime(cfg, args, ap)
     eng = make_engine(cfg, runtime)
     result = eng.run()

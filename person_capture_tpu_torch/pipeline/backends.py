@@ -8,6 +8,8 @@ of its combined face+person step with :class:`YoloPersonBackend` (one
 upload, one chain of ops, one packed download per batch).
 :class:`ClipReidBackend` embeds person crops with the CLIP ViT tower (the
 ReID match modes, and the curator's scene features).
+:class:`ShardedScrfdArcFaceBackend` runs the face chain over a device mesh
+(parallel/mesh.py), across processes too (parallel/multihost.py).
 
 Outputs (host numpy, fixed shapes):
   boxes ``[B, F, 4]`` xyxy in *reader frame coords*, kps ``[B, F, 5, 2]``,
@@ -127,7 +129,10 @@ def i420_to_bgr(planes_u8: torch.Tensor) -> torch.Tensor:
 
 def _random_init(module: torch.nn.Module, seed: int) -> None:
     """Deterministic He-normal init from an explicit generator (the
-    ``--*-weights random`` mode; the JAX package draws other numbers)."""
+    ``--*-weights random`` mode; the JAX package draws other numbers).
+    Conv and dense biases are redrawn from the same generator (torch's
+    own default draws from the global one), so every process of a
+    multi-process run builds the same weights."""
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for name, p in module.named_parameters():
@@ -135,6 +140,11 @@ def _random_init(module: torch.nn.Module, seed: int) -> None:
                 fan_in = p[0].numel()
                 p.copy_(torch.randn(p.shape, generator=g)
                         * (2.0 / fan_in) ** 0.5)
+        for m in module.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Linear)) and \
+                    m.bias is not None:
+                bound = m.weight[0].numel() ** -0.5
+                m.bias.uniform_(-bound, bound, generator=g)
 
 
 class ScrfdArcFaceBackend:
@@ -304,15 +314,7 @@ class ScrfdArcFaceBackend:
         ], dim=-1)
 
     def _unpack(self, packed: np.ndarray, valid) -> Dict[str, np.ndarray]:
-        b, f = packed.shape[0], packed.shape[1]
-        host = {
-            "boxes": packed[..., 0:4],
-            "kps": packed[..., 4:14].reshape(b, f, 5, 2),
-            "scores": packed[..., 14],
-            "mask": packed[..., 15] > 0.5,
-            "quality": packed[..., 16],
-            "feats": packed[..., 17:],
-        }
+        host = unpack_faces(packed)
         host["mask"] = host["mask"] & np.asarray(valid)[:, None]
         return host
 
@@ -464,6 +466,20 @@ class ScrfdArcFaceBackend:
         return fetch
 
 
+def unpack_faces(packed):
+    """The face chain's packed ``[B, F, 17+D]`` output (host array or
+    tensor) → its named fields."""
+    b, f = packed.shape[0], packed.shape[1]
+    return {
+        "boxes": packed[..., 0:4],
+        "kps": packed[..., 4:14].reshape(b, f, 5, 2),
+        "scores": packed[..., 14],
+        "mask": packed[..., 15] > 0.5,
+        "quality": packed[..., 16],
+        "feats": packed[..., 17:],
+    }
+
+
 def start_download(out: torch.Tensor):
     """Start the device→host copy of ``out`` and return ``fetch() ->
     np.ndarray``. On CUDA the copy goes into pinned host memory without
@@ -473,13 +489,91 @@ def start_download(out: torch.Tensor):
     host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
     host.copy_(out, non_blocking=True)
     done = torch.cuda.Event()
-    done.record()
+    done.record(torch.cuda.current_stream(out.device))
 
     def fetch() -> np.ndarray:
         done.synchronize()
         return host.numpy()
 
     return fetch
+
+
+class ShardedScrfdArcFaceBackend:
+    """Multi-device variant of :class:`ScrfdArcFaceBackend`.
+
+    The frame batch splits over the mesh's ``data`` axis, one
+    :class:`ScrfdArcFaceBackend` per data-axis device with the same
+    detector, embedder and settings (``use_arcface``, ``clip_face_cfg``,
+    ``embed_slots``), and wide layers over the optional ``model`` axis
+    (parallel/mesh.py); across processes each computes its own rows and
+    every process gets the whole result (parallel/multihost.py). The frames
+    go up as BGR, as in the JAX package's sharded step. Exposes the
+    extract_batch/submit_batch protocol and, like the JAX backend, no
+    shared-upload or combined face+person entry: the main pass calls the
+    person detector on its own.
+    """
+
+    def __init__(self, mesh=None, mesh_spec: str = "", scrfd_cfg=None,
+                 arcface_cfg=None, det_size: int = 640,
+                 score_thresh: float = 0.5, max_faces: int = 8,
+                 dtype=None, seed: int = 0,
+                 scrfd_weights=None, arcface_weights=None,
+                 use_arcface: bool = True, clip_face_cfg=None,
+                 embed_slots: int = 0, device=None):
+        from ..parallel.mesh import build_sharded_prescan_step, make_mesh
+
+        self.mesh = (mesh if mesh is not None
+                     else make_mesh(mesh_spec, device=device or "cuda"))
+        self.det_size = int(det_size)
+        self.score_thresh = float(score_thresh)
+        self.max_faces = int(max_faces)
+        self._run = build_sharded_prescan_step(
+            self.mesh, scrfd_cfg=scrfd_cfg, arcface_cfg=arcface_cfg,
+            det_size=det_size, max_faces=max_faces, dtype=dtype, seed=seed,
+            scrfd_vars=scrfd_weights, arcface_vars=arcface_weights,
+            use_arcface=use_arcface, clip_face_cfg=clip_face_cfg,
+            embed_slots=embed_slots)
+        # embed dim comes from the step (differs from arcface_cfg when an
+        # .onnx checkpoint or a CLIP tower supplies the encoder)
+        self.embed_dim = self._run.embed_dim
+        # bank placeholder: distances are recomputed on the host against
+        # the live bank, the device result is a cheap byproduct
+        self._bank = np.zeros((1, self.embed_dim), np.float32)
+        self._bank_mask = np.zeros((1,), bool)
+
+    def _pad_to_mesh(self, frames, valid):
+        """The batch dim splits over ``data``: pad to a multiple of the
+        data-axis size (repeat last frame, valid=False) so odd batches —
+        e.g. a single reference photo through seed_bank — still shard."""
+        dp = self.mesh.num_replicas()
+        frames = np.asarray(frames)
+        valid = np.asarray(valid)
+        n = frames.shape[0]
+        rem = (-n) % dp
+        if rem:
+            frames = np.concatenate(
+                [frames, np.repeat(frames[-1:], rem, axis=0)], 0)
+            valid = np.concatenate([valid, np.zeros(rem, bool)])
+        return frames, valid, n
+
+    def submit_batch(self, frames, valid, frame_idxs=None):
+        frames, valid, n = self._pad_to_mesh(frames, valid)
+        out = self._run(frames, self._bank, self._bank_mask,
+                        score_thresh=self.score_thresh)
+        downloads = {k: start_download(out[k])
+                     for k in ("boxes", "kps", "scores", "mask", "feats",
+                               "quality")}
+        valid = valid.copy()
+
+        def fetch():
+            host = {k: d()[:n] for k, d in downloads.items()}
+            host["mask"] = host["mask"] & valid[:n, None]
+            return host
+
+        return fetch
+
+    def extract_batch(self, frames, valid, frame_idxs=None):
+        return self.submit_batch(frames, valid, frame_idxs)()
 
 
 class YoloPersonBackend:

@@ -19,9 +19,10 @@ fleet pays per-video only decode + inference:
 - the prescan cache is content-addressed (pipeline/cache.py), so
   re-sweeping a grown corpus skips every video already scanned.
 
-Scaling: a FLEET of hosts partitions the corpus with ``--shard i/N``
-(deterministic round-robin over the sorted video list) — embarrassingly
-parallel, no coordinator needed.
+Scaling: devices within a host scale via ``--mesh`` / ``--multihost``
+exactly like the single-video CLI; a FLEET of hosts partitions the corpus
+with ``--shard i/N`` (deterministic round-robin over the sorted video list)
+— embarrassingly parallel, no coordinator needed.
 
 Outputs: ``OUT_ROOT/<video-stem>/`` per video (crops + index.csv, same
 schema as the single-video CLI) plus ``OUT_ROOT/sweep_summary.json``.

@@ -453,3 +453,148 @@ def test_host_align_on_the_card(cuda, no_tf32):
 
     assert (cos(got["feats"][m], fused["feats"][m]) >= 0.99).all()
     assert (cos(got["feats"][m], cpu["feats"][m]) >= 0.9999).all()
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_one_card_matches_unsharded(cuda):
+    """The bf16 step on four mesh entries of the one card (data:2,
+    model:2: two replicas on their own CUDA streams, each with its wide
+    layers split in two) against the unsharded backend from the same BGR
+    frames, a face in every even frame and none in the odd ones: the same
+    slots and decisions, ``best_fd`` within 2e-2 and boxes within
+    0.5 px."""
+    import numpy as np
+
+    from person_capture_tpu_torch.core.bank import fd_min_batch
+    from person_capture_tpu_torch.models import arcface as AF
+    from person_capture_tpu_torch.models.zoo import resolve_weights
+    from person_capture_tpu_torch.parallel.mesh import (
+        build_sharded_prescan_step, make_mesh)
+    from person_capture_tpu_torch.pipeline.backends import \
+        ScrfdArcFaceBackend
+    from person_capture_tpu_torch.video.synthetic import (FacePlacement,
+                                                          draw_face)
+
+    frames = np.full((8, 240, 320, 3), 60, np.uint8)
+    for k in range(0, 8, 2):
+        # one 90x110 face, the window test's, moved along the frame
+        draw_face(frames[k], FacePlacement(k, 0, (60 + 16 * k, 60,
+                                                  150 + 16 * k, 170)))
+    w = dict(scrfd_weights=resolve_weights("auto", "scrfd_2.5g"),
+             arcface_weights=resolve_weights("auto", "arcface_synth"))
+    single = ScrfdArcFaceBackend(arcface_cfg=AF.SYNTH_R18, det_size=640,
+                                 device=cuda, transfer_format="bgr", **w)
+    want = single.extract_batch(frames, np.ones(8, bool))
+    m = want["mask"]
+    assert m[::2].any(1).all() and not m[1::2].any()
+    bank = want["feats"][0][m[0]][:1]
+    run = build_sharded_prescan_step(
+        make_mesh("data:2,model:2", devices=[cuda] * 4),
+        arcface_cfg=AF.SYNTH_R18, det_size=640,
+        scrfd_vars=w["scrfd_weights"], arcface_vars=w["arcface_weights"])
+    got = {k: v.cpu().numpy() for k, v in
+           run(frames, bank, np.ones(1, bool), 0.5).items()}
+    _, best = fd_min_batch(torch.from_numpy(want["feats"]),
+                           torch.from_numpy(m), torch.from_numpy(bank),
+                           torch.ones(1, dtype=torch.bool))
+    best = best.numpy()
+    np.testing.assert_array_equal(got["mask"], m)
+    np.testing.assert_array_equal(got["best_fd"] < 0.32, best < 0.32)
+    assert np.abs(got["best_fd"] - best).max() <= 2e-2
+    assert np.abs(got["boxes"][m] - want["boxes"][m]).max() <= 0.5
+
+
+@pytest.mark.cuda
+def test_gui_default_backend_on_the_card(cuda, monkeypatch):
+    """The window's default backend under the fake Qt builds on the card
+    (the device field's default) and finds the drawn face."""
+    import sys
+
+    import numpy as np
+
+    import fake_qt
+    from person_capture_tpu_torch.video.synthetic import (FacePlacement,
+                                                          draw_face)
+
+    fake_qt.install(monkeypatch)
+    monkeypatch.setattr(fake_qt.QSettings, "_stores", {})
+    monkeypatch.delitem(sys.modules, "person_capture_tpu_torch.gui_app",
+                        raising=False)
+    from person_capture_tpu_torch import gui_app
+
+    win = gui_app.MainWindow()
+    assert win._collect_cfg().device == "cuda"
+    face = win._default_backend()
+    assert face.inner.device.type == "cuda"
+    assert face.inner.dtype == torch.bfloat16
+    frame = np.full((1, 240, 320, 3), 60, np.uint8)
+    draw_face(frame[0], FacePlacement(0, 0, (100, 60, 190, 170)))
+    out = face.extract_batch(frame, np.ones(1, bool))
+    assert out["mask"].sum() == 1
+    person = win._aux_factories(win.cfg)["person"]()
+    assert person.device.type == "cuda"
+    sys.modules.pop("person_capture_tpu_torch.gui_app", None)
+
+
+_SHARE_CHILD = r"""
+import json, sys
+from person_capture_tpu_torch.parallel import mesh as M, multihost as MH
+MH.initialize(coordinator=f"127.0.0.1:{sys.argv[2]}", num_processes=2,
+              process_id=int(sys.argv[1]))
+try:
+    mesh = M.make_mesh("data:2")
+    print("MESH " + json.dumps([[str(d) for d in mesh.devices],
+                                mesh.local_replicas()]))
+except ValueError as e:
+    print("REFUSED " + str(e))
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("share", [False, True], ids=["refused", "shared"])
+def test_torchrun_processes_and_the_share_setting(cuda, share):
+    """Two processes with torchrun's LOCAL_RANK 0 and 1 of 2: each takes
+    its own card where the host has two; on one card they would share it,
+    which ``make_mesh`` refuses, naming PERSON_CAPTURE_SHARE_CARDS=1, unless
+    that is set (then each process computes one replica on it)."""
+    import json
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    procs = []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONPATH=repo, LOCAL_RANK=str(rank),
+                   LOCAL_WORLD_SIZE="2")
+        env.pop("PERSON_CAPTURE_SHARE_CARDS", None)
+        if share:
+            env["PERSON_CAPTURE_SHARE_CARDS"] = "1"
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _SHARE_CHILD, str(rank), str(port)],
+            cwd=repo, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=120)
+            assert p.returncode == 0, se[-2000:]
+            outs.append(so)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    one_card = torch.cuda.device_count() < 2
+    for rank, so in enumerate(outs):
+        if one_card and not share:
+            assert "REFUSED" in so and "PERSON_CAPTURE_SHARE_CARDS=1" in so
+            continue
+        devices, local = json.loads(so.split("MESH ", 1)[1])
+        assert local == [rank]
+        assert devices == (["cuda:0", "cuda:0"] if one_card
+                           else ["cuda:0", "cuda:1"])

@@ -25,6 +25,11 @@ import torch
 import person_capture_tpu_torch as P
 torch.set_num_threads(1)   # one of several test workers on the machine
 
+# the GUI imports PySide6, which this machine lacks: the fake Qt double of
+# the tests stands in for it (it imports only the standard library)
+sys.path.insert(0, "tests")
+import fake_qt
+fake_qt.install()
 names = [m.name for m in pkgutil.walk_packages(P.__path__, P.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
@@ -149,6 +154,23 @@ with tempfile.TemporaryDirectory() as d:
         "mask"].any()
     assert OraclePersonBackend(sv).detect_batch(
         frames, np.ones(2, bool))["boxes"].shape == (2, 4, 4)
+
+    # the GUI shell, config binding, updater, mesh and multi-process helpers
+    from person_capture_tpu_torch import gui_app, updater
+    from person_capture_tpu_torch.utils.cfgbind import grouped_fields
+    from person_capture_tpu_torch.parallel import mesh, multihost
+    from person_capture_tpu_torch.pipeline.backends import \
+        ShardedScrfdArcFaceBackend
+    win = gui_app.MainWindow(backend_factory=lambda: OracleBackend(sv))
+    assert win._collect_cfg().device == "cuda" and grouped_fields()
+    assert updater.current_version(d) == P.__version__
+    assert not multihost.is_multiprocess()
+    sb = ShardedScrfdArcFaceBackend(
+        mesh=mesh.make_mesh("data:2,model:2", device="cpu"),
+        scrfd_cfg=SD.TINY, arcface_cfg=AF.TINY, det_size=64, max_faces=4,
+        dtype=torch.float32)
+    assert sb.extract_batch(frames[:1], np.ones(1, bool))["feats"].shape \
+        == (1, 4, AF.TINY.embed_dim)
 
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in %r)

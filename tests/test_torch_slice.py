@@ -246,16 +246,20 @@ def _parsed(tmp_path, sets, extra):
 
 
 @pytest.mark.parametrize("sets,extra,setting", [
-    ([], ["--multihost"], "--multihost"),
-    ([], ["--coordinator", "localhost:1234"], "--coordinator"),
-    ([], ["--mesh", "data:2"], "--mesh"),
+    ([], ["--multihost", "--mesh", "data:1,model:2"],
+     "--mesh data:N,model:K"),
 ])
-def test_unported_branches_raise_value_error(tmp_path, sets, extra, setting):
-    """Every branch of the runtime the port does not carry is refused up
-    front with the setting that avoids it — never built smaller in
-    silence."""
+def test_unported_branches_raise_value_error(tmp_path, monkeypatch, sets,
+                                             extra, setting):
+    """The one branch of the JAX runtime the port does not carry, a model
+    mesh axis that spans processes (here two processes of one CPU entry
+    each), is refused up front with the setting that avoids it — never
+    built smaller in silence."""
+    from person_capture_tpu_torch.parallel import multihost as MH
+
+    monkeypatch.setattr(MH, "process_count", lambda: 2)
     ap, args, cfg = _parsed(tmp_path, sets, extra)
-    with pytest.raises(ValueError, match="not ported") as err:
+    with pytest.raises(ValueError, match="spans processes") as err:
         TM.build_runtime(cfg, args, ap)
     assert setting in str(err.value)
 
@@ -272,6 +276,9 @@ def test_unported_branches_raise_value_error(tmp_path, sets, extra, setting):
     ([], ["--scrfd-weights", "SCRFD_ONNX", "--arcface-weights", "ARC_ONNX"]),
     ([], ["--arcface-model", "arcface_synth", "--arcface-weights",
           "ARC_SRC"]),
+    ([], ["--multihost"]),
+    ([], ["--coordinator", "localhost:1234"]),
+    ([], ["--mesh", "data:2"]),
 ])
 def test_ported_branches_build(tmp_path, sets, extra):
     """The branches the earlier slices refused now build the backends the
@@ -300,6 +307,15 @@ def test_ported_branches_build(tmp_path, sets, extra):
     ap, args, cfg = _parsed(tmp_path, sets, extra)
     rt = TM.build_runtime(cfg, args, ap)
     face = rt["inner_face"]
+    if cfg.tpu_mesh:
+        # a replica per data-axis entry, and the full-frame rescue over the
+        # same mesh (built on first use)
+        assert isinstance(face, TB.ShardedScrfdArcFaceBackend)
+        assert face.mesh.shape == {"data": 2}
+        assert [r.device.type for r in face._run.replicas] == ["cpu", "cpu"]
+        assert isinstance(rt["fullframe"]._get(),
+                          TB.ShardedScrfdArcFaceBackend)
+        return
     assert isinstance(face, TB.ScrfdArcFaceBackend)
     assert face.device.type == "cpu" and face.dtype == torch.float32
     if args.match_mode != "face_only":
