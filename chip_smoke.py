@@ -135,13 +135,34 @@ non-zero without printing a result:
               data:2``: both exit 0 within their time limit, and
               ``out/index.csv`` and ``out/.proc1/index.csv`` hold phase 4's
               frames.
+17. sharded — (a) the spatially sharded full-frame detect: SCRFD-2.5G
+              (bundled) at det 1408 with H split over ``data:1,model:4`` on
+              four entries of the card, against the unsharded
+              ``detect_faces`` on 4 canvases (a drawn face inside every
+              slab, one across every slab edge), in fp32 (TF32 off) and
+              bf16: masks and slots identical, scores within 1e-3 (fp32),
+              boxes within 0.5 px, both timed in turns; (b) the sharded
+              train step, SCRFD-2.5G at the trainer's defaults (256 px,
+              batch 32) on ``data:2,model:2`` over four entries of the
+              card, against the unsharded step on the same weights and 3
+              batches, TF32 off: losses rel ≤ 1e-3, npos equal, running
+              statistics within 1e-3, ms per step of both in turns; (c) a
+              model axis across processes: two processes sharing the card
+              (``PERSON_CAPTURE_SHARE_CARDS=1``, ``--coordinator``-style
+              join), one entry each of ``data:1,model:2``, run the sharded
+              pre-scan step (phase 16(b)'s models, det 640, bf16) on 8
+              frames of its batch: masks and slots identical on both
+              ranks, ``best_fd`` within 2e-2 of the single-process
+              ``data:1`` step; ms per step against the same mesh in one
+              process; (d) ``dryrun.dryrun_multichip(8, full=True)`` and
+              its summary line.
 
-Phases 8 to 16 reach no hand-written kernel beyond the tone-map: the CLIP
+Phases 8 to 17 reach no hand-written kernel beyond the tone-map: the CLIP
 tower, the curator's pHash and MMR, the ONNX interpreter, the loaders, the
-sweep, the doctor, the train steps, the GUI and the mesh are torch ops and
-host code, as they are XLA ops and host code in the JAX package. Each phase's tone-map
-launches are counted from 0 just before its run and printed in the
-``kernels`` line.
+sweep, the doctor, the train steps, the GUI and the mesh programs are torch
+ops and host code, as they are XLA ops and host code in the JAX package.
+Each phase's tone-map launches are counted from 0 just before its run and
+printed in the ``kernels`` line.
 
 Then a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
 ``{"ok": true, "device": {...}}``.
@@ -1774,6 +1795,54 @@ def phase_gui(work: str, fixture, phase4_launches: dict, phase4_frames):
 MESH_CHILD_TIMEOUT_S = 300
 
 
+def start_children(entry: str, argvs):
+    """One process per ``argvs`` entry running ``chip_smoke.<entry>(argv)``
+    on the one card (``PERSON_CAPTURE_SHARE_CARDS=1``: they share it on
+    purpose), output to files: a child blocked on a full pipe would stall
+    the other one in the collectives."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (f"import sys, chip_smoke; "
+            f"sys.exit(chip_smoke.{entry}(sys.argv[1:]))")
+    env = dict(os.environ, PERSON_CAPTURE_SHARE_CARDS="1")
+    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
+            for _ in argvs]
+    procs = [subprocess.Popen([sys.executable, "-c", code, *argv], cwd=here,
+                              env=env, stdout=so, stderr=se, text=True)
+             for argv, (so, se) in zip(argvs, logs)]
+    return procs, logs
+
+
+def finish_children(started) -> list:
+    """Wait for each child of :func:`start_children` within
+    ``MESH_CHILD_TIMEOUT_S``; each must exit 0. Returns the ``"child"``
+    JSON line of each; every child still running is killed."""
+    procs, logs = started
+    children = []
+    try:
+        for i, (p, (so, se)) in enumerate(zip(procs, logs)):
+            try:
+                p.wait(timeout=MESH_CHILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"check failed: process {i} ran past "
+                                   f"{MESH_CHILD_TIMEOUT_S} s")
+            so.seek(0)
+            se.seek(0)
+            so, se = so.read(), se.read()
+            require(p.returncode == 0, f"process {i} exited "
+                    f"{p.returncode}:\n{so[-2000:]}\n{se[-2000:]}")
+            children.append(json.loads(
+                [ln for ln in so.splitlines() if '"child"' in ln][-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for so, se in logs:
+            so.close()
+            se.close()
+    return children
+
+
 def cli_child(argv) -> int:
     """One process of phase 16(c): the CLI's own sequence (``build_config``
     → ``maybe_init_multihost`` → ``build_runtime`` → ``make_engine`` →
@@ -1812,26 +1881,24 @@ def _index_frames(out: str) -> list:
         return [int(r["frame"]) for r in csv.DictReader(fh)]
 
 
-def sharded_vs_unsharded(fixture) -> dict:
-    """Phase 16(b): the sharded step on four mesh entries of one card (two
-    replicas, each split in two) against the unsharded backend on one
-    64-frame batch of the fixture."""
+def fixture_batch(fixture, n: int, single: bool = False):
+    """``n`` frames of the fixture's SDR video (every other one from the
+    start), the bundled SCRFD-2.5G and ArcFace weights, and a one-row bank
+    from the reference's face (embedded by the unsharded bf16 backend,
+    which ``single=True`` returns too)."""
     import cv2
     import numpy as np
     import torch
 
-    from person_capture_tpu_torch.core.bank import fd_min_batch
     from person_capture_tpu_torch.models import arcface as AF
     from person_capture_tpu_torch.models.zoo import resolve_weights
-    from person_capture_tpu_torch.parallel.mesh import (
-        build_sharded_prescan_step, make_mesh)
     from person_capture_tpu_torch.pipeline.backends import (
         ScrfdArcFaceBackend, extract_single_image)
 
-    vid, ref_path, truth = fixture[:3]
+    vid, ref_path = fixture[:2]
     cap = cv2.VideoCapture(os.path.join(os.path.dirname(vid), "sdr.mp4"))
     frames = []
-    while len(frames) < 64:
+    while len(frames) < n:
         ok, frame = cap.read()
         require(ok, "the fixture ran out of frames")
         if int(cap.get(cv2.CAP_PROP_POS_FRAMES) - 1) % 2 == 0:
@@ -1840,13 +1907,30 @@ def sharded_vs_unsharded(fixture) -> dict:
     frames = np.stack(frames)
     weights = dict(scrfd_weights=resolve_weights("auto", "scrfd_2.5g"),
                    arcface_weights=resolve_weights("auto", "arcface_synth"))
-    single = ScrfdArcFaceBackend(arcface_cfg=AF.SYNTH_R18, det_size=640,
-                                 dtype=torch.bfloat16, device="cuda",
-                                 transfer_format="bgr", **weights)
-    ref = extract_single_image(single, cv2.imread(ref_path))
+    backend = ScrfdArcFaceBackend(arcface_cfg=AF.SYNTH_R18, det_size=640,
+                                  dtype=torch.bfloat16, device="cuda",
+                                  transfer_format="bgr", **weights)
+    ref = extract_single_image(backend, cv2.imread(ref_path))
     require(ref["mask"][0].any(), "no face in the reference")
     bank = ref["feats"][0][ref["mask"][0]][:1].astype(np.float32)
-    bank_mask = np.ones(1, bool)
+    out = (frames, weights, bank, np.ones(1, bool))
+    return out + (backend,) if single else out
+
+
+def sharded_vs_unsharded(fixture) -> dict:
+    """Phase 16(b): the sharded step on four mesh entries of one card (two
+    replicas, each split in two) against the unsharded backend on one
+    64-frame batch of the fixture."""
+    import numpy as np
+    import torch
+
+    from person_capture_tpu_torch.core.bank import fd_min_batch
+    from person_capture_tpu_torch.models import arcface as AF
+    from person_capture_tpu_torch.parallel.mesh import (
+        build_sharded_prescan_step, make_mesh)
+
+    frames, weights, bank, bank_mask, single = fixture_batch(fixture, 64,
+                                                             single=True)
     mesh = make_mesh("data:2,model:2", devices=[torch.device("cuda", 0)] * 4)
     run = build_sharded_prescan_step(
         mesh, arcface_cfg=AF.SYNTH_R18, det_size=640, max_faces=8,
@@ -1912,42 +1996,9 @@ def phase_mesh(work: str, fixture, phase4_frames) -> dict:
             "--set", "prescan_cache_mode=off"]
     for setting in SLICE_SETS:
         argv += ["--set", setting]
-    here = os.path.dirname(os.path.abspath(__file__))
-    code = "import sys, chip_smoke; sys.exit(chip_smoke.cli_child(sys.argv[1:]))"
-    # both processes compute on the one card, on purpose
-    env = dict(os.environ, PERSON_CAPTURE_SHARE_CARDS="1")
     t0 = time.perf_counter()
-    # output to files: a child blocked on a full pipe would stall the other
-    # one in the collectives
-    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
-            for _ in range(2)]
-    procs = [subprocess.Popen([sys.executable, "-c", code, *argv,
-                               "--process-id", str(i)], cwd=here, env=env,
-                              stdout=so, stderr=se, text=True)
-             for i, (so, se) in enumerate(logs)]
-    children = []
-    try:
-        for i, (p, (so, se)) in enumerate(zip(procs, logs)):
-            try:
-                p.wait(timeout=MESH_CHILD_TIMEOUT_S)
-            except subprocess.TimeoutExpired:
-                raise RuntimeError(f"check failed: process {i} ran past "
-                                   f"{MESH_CHILD_TIMEOUT_S} s")
-            so.seek(0)
-            se.seek(0)
-            so, se = so.read(), se.read()
-            require(p.returncode == 0, f"process {i} exited "
-                    f"{p.returncode}:\n{so[-2000:]}\n{se[-2000:]}")
-            children.append(json.loads(
-                [ln for ln in so.splitlines() if '"child"' in ln][-1]))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-        for so, se in logs:
-            so.close()
-            se.close()
+    children = finish_children(start_children(
+        "cli_child", [argv + ["--process-id", str(i)] for i in range(2)]))
     multi_s = time.perf_counter() - t0
     primary = _index_frames(out)
     secondary = _index_frames(os.path.join(out, ".proc1"))
@@ -1963,6 +2014,279 @@ def phase_mesh(work: str, fixture, phase4_frames) -> dict:
          multihost_run_seconds=[c["seconds"] for c in children],
          multihost_seconds=multi_s)
     return run["launches"], [c["launches"] for c in children]
+
+
+# phase 17(a): the full-frame rescue's canvas (face_fullframe_imgsz's
+# default) split in four slabs of 352 rows
+SPATIAL_SIZE, SPATIAL_SLABS = 1408, 4
+
+
+def spatial_canvases():
+    """Four det-1408 canvases, background 70: canvas i holds one drawn face
+    of 80-160 px inside slab i and one across the edge below slab
+    ``i % 3``, so every slab holds a face and every edge cuts one."""
+    import numpy as np
+
+    from person_capture_tpu_torch.video.synthetic import (FacePlacement,
+                                                          draw_face)
+
+    size, slabs = SPATIAL_SIZE, SPATIAL_SLABS
+    h = size // slabs
+    rng = np.random.default_rng(17)
+    canvases = np.full((slabs, size, size, 3), 70, np.uint8)
+    for i in range(slabs):
+        s = float(rng.uniform(80, 160))
+        x = float(rng.uniform(16, size / 2 - s))
+        y = i * h + float(rng.uniform(8, h - 1.1 * s - 8))
+        draw_face(canvases[i], FacePlacement(0, 0, (x, y, x + s,
+                                                    y + 1.1 * s)))
+        edge = h * (i % (slabs - 1) + 1)
+        s = float(rng.uniform(80, 160))
+        x = float(rng.uniform(size / 2, size - s - 16))
+        draw_face(canvases[i], FacePlacement(0, 1, (
+            x, edge - 0.55 * s, x + s, edge + 0.55 * s)))
+    return canvases.astype(np.float32)
+
+
+def spatial_vs_unsharded() -> dict:
+    """Phase 17(a): SCRFD-2.5G (bundled) at det 1408 with H split over
+    ``data:1,model:4`` on four entries of the card, against the unsharded
+    ``detect_faces`` on the same 4 canvases: in fp32 (TF32 off) and in
+    bf16 the same masks and slots, scores within 1e-3 (fp32) and the same
+    decisions (bf16), boxes within 0.5 px; both timed in turns."""
+    import numpy as np
+    import torch
+
+    from person_capture_tpu_torch.models import scrfd as SD
+    from person_capture_tpu_torch.models.bridge import load_scrfd
+    from person_capture_tpu_torch.models.zoo import resolve_weights
+    from person_capture_tpu_torch.parallel.mesh import (
+        build_sharded_fullframe_detect, make_mesh)
+
+    weights = resolve_weights("auto", "scrfd_2.5g")
+    canvases = spatial_canvases()
+    ones = np.ones(len(canvases), np.float32)
+    mesh = make_mesh(f"data:1,model:{SPATIAL_SLABS}",
+                     devices=[torch.device("cuda", 0)] * SPATIAL_SLABS)
+    host = torch.from_numpy(canvases)
+    out, times = {}, {}
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        run = build_sharded_fullframe_detect(
+            mesh, det_size=SPATIAL_SIZE, max_faces=8, dtype=dtype,
+            scrfd_vars=weights)
+        single = load_scrfd(SD.SCRFD(SD.SCRFD_2_5G), weights).eval().to(
+            device="cuda", dtype=dtype)
+
+        def unsharded():
+            return SD.detect_faces(single, host.cuda(),
+                                   torch.ones(len(canvases)), 0.5, 8)
+
+        with _no_tf32() if dtype == torch.float32 else \
+                contextlib.nullcontext():
+            got = {k: v.cpu().numpy() for k, v in
+                   run(canvases, ones, 0.5).items()}
+            want = {k: v.cpu().numpy() for k, v in unsharded().items()}
+            times[name] = in_turns({
+                "sharded": lambda: run(canvases, ones, 0.5),
+                "unsharded": unsharded}, timer=partial_wall_ms)
+        m = want["mask"]
+        require(np.array_equal(got["mask"], m),
+                f"{name}: masks differ in {int((got['mask'] != m).sum())} "
+                "slots")
+        require(int(m.sum()) >= 2 * len(canvases),
+                f"{name}: {int(m.sum())} faces found, drawn "
+                f"{2 * len(canvases)}")
+        score_err = float(np.abs(got["scores"][m] - want["scores"][m]).max())
+        box_err = float(np.abs(got["boxes"][m] - want["boxes"][m]).max())
+        if name == "fp32":
+            require(score_err <= 1e-3, f"fp32 scores differ by {score_err}")
+        require(box_err <= 0.5, f"{name}: boxes differ by {box_err} px")
+        out[name] = {"faces": int(m.sum()), "score_max_err": score_err,
+                     "box_max_err_px": box_err, "batch_ms": times[name]}
+    return out
+
+
+def train_vs_unsharded() -> dict:
+    """Phase 17(b): SCRFD-2.5G at the trainer's defaults (256 px, batch 32)
+    on ``data:2,model:2`` over four entries of the card against the
+    unsharded step (the master's copy, ``make_loss_fn``, the same AdamW),
+    3 steps on ``step_rng(0, i)``'s batches with TF32 off, each unsharded
+    step from the weights and statistics the sharded one started from
+    (after an AdamW step the two runs part: Adam moves a weight whose
+    gradient is rounding noise by up to lr): losses rel ≤ 1e-3, npos
+    equal, running statistics within 1e-3 of each leaf's largest entry;
+    ms per step of both, in turns."""
+    import copy
+
+    import torch
+
+    from person_capture_tpu_torch.models import scrfd as SD
+    from person_capture_tpu_torch.parallel.mesh import (
+        build_sharded_train_step, make_mesh)
+    from person_capture_tpu_torch.train.ckpt import step_rng
+    from person_capture_tpu_torch.train.loop import to_device
+    from person_capture_tpu_torch.train.scenes import sample_batch
+    from person_capture_tpu_torch.train.scrfd_synth import (build_targets,
+                                                            make_loss_fn)
+
+    cfg, size, batch = SD.SCRFD_2_5G, 256, 32
+    card = torch.device("cuda", 0)
+    step, state, model = build_sharded_train_step(
+        make_mesh("data:2,model:2", devices=[card] * 4), scrfd_cfg=cfg,
+        size=size)
+    twin = copy.deepcopy(model)
+    opt = torch.optim.AdamW(twin.parameters(), lr=1e-3, betas=(0.9, 0.999),
+                            eps=1e-8, weight_decay=1e-4)
+    loss_fn = make_loss_fn(twin)
+    batches = []
+    for i in range(3):
+        d = sample_batch(step_rng(0, i), batch, size)
+        batches.append((d["images"], build_targets(
+            d["boxes"], d["kps"], d["gt_mask"], size, cfg.strides,
+            cfg.num_anchors)))
+
+    def twin_step(images, targets):
+        opt.zero_grad(set_to_none=True)
+        loss, aux = loss_fn(to_device(images, card),
+                            to_device(targets, card))
+        loss.backward()
+        opt.step()
+        return loss.detach(), aux["npos"]
+
+    rows = []
+    with _no_tf32():
+        for images, targets in batches:
+            start = copy.deepcopy(model.state_dict())
+            state, metrics = step(state, images, targets)
+            twin.load_state_dict(start)
+            loss, npos = twin_step(images, targets)
+            stats = max(float((a - b).abs().max() / b.abs().max())
+                        for (n, a), b in zip(model.named_buffers(),
+                                             twin.buffers())
+                        if n.endswith(("running_mean", "running_var")))
+            rows.append({"loss": float(metrics["loss"]),
+                         "unsharded_loss": float(loss),
+                         "npos": int(metrics["npos"]),
+                         "unsharded_npos": int(npos), "stats_rel": stats})
+        images, targets = batches[0]
+        ms = in_turns({"sharded": lambda: step(state, images, targets),
+                       "unsharded": lambda: twin_step(images, targets)},
+                      timer=partial_wall_ms)
+    for r in rows:
+        rel = abs(r["loss"] - r["unsharded_loss"]) / abs(r["unsharded_loss"])
+        require(rel <= 1e-3, f"losses {r['loss']} and {r['unsharded_loss']}")
+        require(r["npos"] == r["unsharded_npos"], f"npos {r}")
+        require(r["stats_rel"] <= 1e-3, f"running statistics {r}")
+    return {"steps": rows, "step_ms": ms}
+
+
+def step_child(argv) -> int:
+    """One process of phase 17(c): the sharded pre-scan step on
+    ``data:1,model:2`` with one mesh entry in each of two processes that
+    share the card; writes its outputs and prints its ms per step."""
+    import numpy as np
+    import torch
+
+    from person_capture_tpu_torch.models import arcface as AF
+    from person_capture_tpu_torch.models.zoo import resolve_weights
+    from person_capture_tpu_torch.parallel import multihost as MH
+    from person_capture_tpu_torch.parallel.mesh import (
+        build_sharded_prescan_step, make_mesh)
+
+    rank, port, inputs, out = int(argv[0]), argv[1], argv[2], argv[3]
+    MH.initialize(coordinator=f"127.0.0.1:{port}", num_processes=2,
+                  process_id=rank)
+    data = np.load(inputs)
+    mesh = make_mesh("data:1,model:2")
+    require(mesh.owners.tolist() == [[0, 1]],
+            f"the model axis does not span the processes: {mesh.owners}")
+    run = build_sharded_prescan_step(
+        mesh, arcface_cfg=AF.SYNTH_R18, det_size=640, max_faces=8,
+        dtype=torch.bfloat16,
+        scrfd_vars=resolve_weights("auto", "scrfd_2.5g"),
+        arcface_vars=resolve_weights("auto", "arcface_synth"))
+    args = (data["frames"], data["bank"], data["bank_mask"], 0.5)
+    got = {k: v.cpu().numpy() for k, v in run(*args).items()}
+    np.savez(out, **got)
+    emit(child=True, rank=rank, step_ms=wall_ms(lambda: run(*args), reps=5,
+                                                 warmup=2))
+    return 0
+
+
+def across_processes(work: str, fixture) -> dict:
+    """Phase 17(c): two processes sharing the card, each one entry of a
+    ``data:1,model:2`` mesh, run the sharded pre-scan step (SCRFD-2.5G and
+    ArcFace SYNTH_R18 bundled, det 640, bf16) on 8 frames of phase 16's
+    batch (inside the first truth span), every split layer's slices
+    all-gathered through the host (gloo); held to the single-process
+    ``data:1`` step: masks and slots identical on both ranks, ``best_fd``
+    within 2e-2; ms per step against the same mesh in one process."""
+    import numpy as np
+    import torch
+
+    from person_capture_tpu_torch.models import arcface as AF
+    from person_capture_tpu_torch.parallel.mesh import (
+        build_sharded_prescan_step, make_mesh)
+
+    frames, weights, bank, bank_mask = fixture_batch(fixture, 64)
+    frames = frames[10:18]        # video frames 20-34: the first truth span
+    inputs = os.path.join(work, "across_inputs.npz")
+    np.savez(inputs, frames=frames, bank=bank, bank_mask=bank_mask)
+    port = _free_port()
+    outs = [os.path.join(work, f"across_{i}.npz") for i in range(2)]
+    started = start_children("step_child", [[str(i), str(port), inputs,
+                                             outs[i]] for i in range(2)])
+    try:
+        # the same mesh in this process, while the children start
+        card = torch.device("cuda", 0)
+        args = (frames, bank, bank_mask, 0.5)
+        step = {}
+        for spec, n in (("data:1", 1), ("data:1,model:2", 2)):
+            step[spec] = build_sharded_prescan_step(
+                make_mesh(spec, devices=[card] * n),
+                arcface_cfg=AF.SYNTH_R18, det_size=640, max_faces=8,
+                dtype=torch.bfloat16, scrfd_vars=weights["scrfd_weights"],
+                arcface_vars=weights["arcface_weights"])
+        want = {k: v.cpu().numpy() for k, v in step["data:1"](*args).items()}
+        in_process_ms = wall_ms(lambda: step["data:1,model:2"](*args),
+                                reps=5, warmup=2)
+    finally:
+        children = finish_children(started)
+    m = want["mask"]
+    require(m.any(), "no face in the 8 frames")
+    errs = []
+    for i, path in enumerate(outs):
+        got = dict(np.load(path))
+        require(np.array_equal(got["mask"], m),
+                f"rank {i}: masks differ in {int((got['mask'] != m).sum())} "
+                "slots")
+        errs.append(float(np.abs(got["best_fd"] - want["best_fd"]).max()))
+        require(errs[-1] <= 2e-2, f"rank {i}: best_fd differs by {errs[-1]}")
+    across_ms = [c["step_ms"] for c in children]
+    return {"faces": int(m.sum()), "best_fd_max_err": errs,
+            "step_ms_across_processes": across_ms,
+            "step_ms_in_process": in_process_ms,
+            "ratio": max(across_ms) / in_process_ms}
+
+
+def phase_sharded(work: str, fixture) -> dict:
+    """Phase 17: the spatially sharded full-frame detect, the sharded train
+    step, a model axis across two processes, and the dryrun."""
+    from person_capture_tpu_torch.dryrun import dryrun_multichip
+
+    reset_launches()
+    result, seconds = {}, {}
+    for name, fn in (("spatial", spatial_vs_unsharded),
+                     ("train", train_vs_unsharded),
+                     ("across", lambda: across_processes(work, fixture)),
+                     ("dryrun", lambda: _quiet(dryrun_multichip, 8,
+                                               full=True)[0])):
+        t0 = time.perf_counter()
+        result[name] = fn()
+        seconds[name] = time.perf_counter() - t0
+    launches = read_launches()
+    emit(phase="sharded", **result, seconds=seconds)
+    return launches
 
 
 def main() -> int:
@@ -1998,6 +2322,7 @@ def main() -> int:
                  "gui": phase_gui(work, fixture, launches, phase4_frames)}
         later["mesh"], mesh_processes = phase_mesh(work, fixture,
                                                    phase4_frames)
+        later["sharded"] = phase_sharded(work, fixture)
     source = "person_capture_tpu_torch/csrc/tonemap.cu"
     replaces = "person_capture_tpu/kernels/hdr.py:217"
 

@@ -230,16 +230,6 @@ def maybe_init_multihost(args, out_dir: str) -> str:
     return out_dir
 
 
-def check_ported(cfg, args) -> None:
-    """Refuse, up front, the one branch of the JAX runtime this port does
-    not carry, naming the setting that avoids it: a ``model`` mesh axis
-    that spans processes (``parallel/mesh.Mesh.replica_owners``)."""
-    if cfg.tpu_mesh:
-        from .parallel.mesh import make_mesh
-
-        make_mesh(cfg.tpu_mesh, device=cfg.device).replica_owners()
-
-
 def resolve_yolo(yolo_model: str):
     """Resolve the person-detector spec to (yolo_cfg, weights).
 
@@ -324,7 +314,6 @@ def build_runtime(cfg, args, ap) -> dict:
                                     YoloPersonBackend)
 
     device = resolve_device(cfg)
-    check_ported(cfg, args)
     dtype = (torch.bfloat16 if cfg.tpu_compute_dtype == "bfloat16"
              else torch.float32)
 

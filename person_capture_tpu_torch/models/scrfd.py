@@ -211,11 +211,18 @@ def detect_faces(model: SCRFD, frames_bgr, det_scales,
     Returns dict with fixed shapes: boxes ``[B, F, 4]`` (original-frame
     coords), kps ``[B, F, 5, 2]``, scores ``[B, F]``, mask ``[B, F]``.
     """
-    cfg = model.cfg
-    max_faces = int(max_faces or cfg.max_faces)
     dtype = next(model.parameters()).dtype
     x = normalize_scrfd(frames_bgr).permute(0, 3, 1, 2).to(dtype)
-    levels = model(x)
+    return detections_from_levels(model.cfg, model(x), det_scales,
+                                  score_thresh, max_faces)
+
+
+def detections_from_levels(cfg: SCRFDConfig, levels, det_scales,
+                           score_thresh: float = 0.5,
+                           max_faces: int | None = None):
+    """The fixed-slot detections of :func:`detect_faces` from the model's
+    per-level raw maps ``[(cls, bbox, kps), ...]`` (NCHW)."""
+    max_faces = int(max_faces or cfg.max_faces)
     level_scores, level_boxes, level_kps = [], [], []
     for (cls_map, bbox_map, kps_map), stride in zip(levels, cfg.strides):
         s, bx, kp = decode_level(cls_map, bbox_map, kps_map, stride,

@@ -8,17 +8,22 @@ The design is the JAX package's:
   the host's cards (``parallel/mesh.local_cards``);
 - one global mesh (parallel/mesh.py) lists every process's devices in rank
   order; the frame batch splits over its ``data`` axis, and each process
-  computes ONLY the rows its own devices own (:func:`make_global_batch`).
-  Each process decodes the video itself: decode at pre-scan widths is cheap,
-  compute is what scales;
+  computes ONLY the rows of the replicas it holds a device of
+  (:func:`make_global_batch`). Each process decodes the video itself:
+  decode at pre-scan widths is cheap, compute is what scales;
+- a replica's ``model`` axis may span processes: each of them computes the
+  replica with the column slices (or slabs) of its own devices, exchanged
+  over a gloo subgroup of the row (``parallel/mesh.RowComm``);
 - the small per-batch outputs (boxes and feats per frame) are all-gathered
-  to every process (:func:`gather_rows`), so the host-side sequential replay
-  — spans, locks, bank growth — runs identically on every process. Only the
-  primary writes user-visible outputs (:func:`is_primary`).
+  to every process (:func:`gather_rows`), each replica's from the rank of
+  its first model-axis device, so the host-side sequential replay — spans,
+  locks, bank growth — runs identically on every process. Only the primary
+  writes user-visible outputs (:func:`is_primary`).
 
-The collectives run on gloo: they move only those small outputs, which go
-to the host anyway, and gloo also works when two ranks share one card,
-which NCCL refuses.
+The collectives run on gloo: gloo also works when two ranks share one card,
+which NCCL refuses. The per-batch outputs go to the host anyway; a model
+row across processes sends each split layer's output through the host too,
+which costs what PERF.md §7 records.
 
 Single-process behavior is unchanged: every helper passes its input through,
 so the pipeline code calls these unconditionally.
@@ -108,35 +113,46 @@ def is_multiprocess() -> bool:
     return process_count() > 1
 
 
-def make_global_batch(mesh, arr: np.ndarray):
+def make_global_batch(mesh, arr: np.ndarray, axis: str = "model"):
     """Host batch (full copy on every process) → the rows this process
     computes.
 
     Single-process: returns ``arr`` unchanged (every replica is local).
-    Multi-process: the contiguous rows of the data-axis replicas whose
-    devices this process owns (``mesh.local_replicas``), so no process
-    uploads rows it does not compute."""
+    Multi-process: the contiguous rows of each data-axis replica in which
+    this process holds a device of the replica's ``axis`` row
+    (``mesh.local_replicas``), in replica order, so no process uploads rows
+    it does not compute. A replica whose row spans processes hands its rows
+    to each of them."""
     if not is_multiprocess():
         return arr
     arr = np.asarray(arr)
     per = arr.shape[0] // mesh.num_replicas()
-    local = mesh.local_replicas()
-    if not local:
-        return arr[:0]
-    return arr[local[0] * per:(local[-1] + 1) * per]
+    return np.concatenate([arr[:0]] + [arr[r * per:(r + 1) * per]
+                                       for r in mesh.local_replicas(axis)])
 
 
-def gather_rows(rows: dict) -> dict:
+def gather_rows(rows: dict, mesh=None, axis: str = "model") -> dict:
     """All-gather each process's rows ``{name: np.ndarray [n_p, ...]}``
     (``{}`` from a process that computed none) and concatenate them in rank
-    order, so every process holds the full result. Single-process: returns
-    ``rows``."""
+    order, so every process holds the full result. With ``mesh``, ``rows``
+    are those of :func:`make_global_batch` (each local replica's, in
+    order), and a process sends only the replicas it leads
+    (``mesh.replica_owners``): a replica computed by several processes
+    counts once. Single-process: returns ``rows``."""
     if not is_multiprocess():
         return rows
     import torch.distributed as dist
 
+    if mesh is not None and rows:
+        local = mesh.local_replicas(axis)
+        per = len(next(iter(rows.values()))) // len(local)
+        leaders = mesh.replica_owners(axis)
+        keep = np.concatenate([np.arange(0)] + [
+            np.arange(i * per, (i + 1) * per) for i, r in enumerate(local)
+            if leaders[r] == process_index()])
+        rows = {k: v[keep] for k, v in rows.items()} if keep.size else {}
     parts: List[Optional[dict]] = [None] * process_count()
     dist.all_gather_object(parts, rows)
-    parts = [p for p in parts if p]     # a process may own no replica
+    parts = [p for p in parts if p]     # a process may lead no replica
     return {k: np.concatenate([p[k] for p in parts], axis=0)
             for k in parts[0]}

@@ -111,20 +111,24 @@ def build_targets(boxes: np.ndarray, kps: np.ndarray, gt_mask: np.ndarray,
 # ----------------------------------------------------------------- losses
 
 def make_loss_fn(model):
-    """``loss_fn(images_u8, targets) -> (loss, aux)`` on device tensors,
-    the JAX ``make_loss_fn``'s loss: the raw NCHW maps are taken to flax's
-    NHWC ``(h, w, anchor)`` order before they meet the targets."""
+    """``loss_fn(images_u8, targets, total_pos=None) -> (loss, aux)`` on
+    device tensors, the JAX ``make_loss_fn``'s loss: the raw NCHW maps are
+    taken to flax's NHWC ``(h, w, anchor)`` order before they meet the
+    targets. ``total_pos``: the positive anchors of a larger batch that
+    this one is a part of (the sharded step's global batch), which then
+    normalise the loss in place of this batch's own."""
     from ..ops.preprocess import normalize_scrfd
     from .loop import huber_loss, nchw, sigmoid_focal_loss
 
     def nhwc(t, b, *tail):
         return t.float().permute(0, 2, 3, 1).reshape(b, -1, *tail)
 
-    def loss_fn(images_u8, targets):
+    def loss_fn(images_u8, targets, total_pos=None):
         x = nchw(normalize_scrfd(images_u8.float()))
         levels = model(x)
-        total_pos = sum(t["pos"].sum() for t in targets)
-        denom = torch.clamp(total_pos.float(), min=1.0)
+        if total_pos is None:
+            total_pos = sum(t["pos"].sum() for t in targets)
+        denom = torch.clamp(torch.as_tensor(total_pos).float(), min=1.0)
         cls_loss = box_loss = kps_loss = 0.0
         for (cls_map, bbox_map, kps_map), t in zip(levels, targets):
             bsz = cls_map.shape[0]

@@ -598,3 +598,107 @@ def test_torchrun_processes_and_the_share_setting(cuda, share):
         assert local == [rank]
         assert devices == (["cuda:0", "cuda:0"] if one_card
                            else ["cuda:0", "cuda:1"])
+
+
+# ---- the spatially sharded full-frame detect and the sharded train step ----
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_spatial_detect_on_one_card_matches_unsharded(cuda, no_tf32, dtype):
+    """SCRFD-2.5G (bundled) at det 1408 with H split over ``model:4`` on
+    four entries of the card, against the unsharded ``detect_faces`` on
+    two canvases, each with one face inside a slab and one across a slab
+    edge: the same slots, boxes within 0.5 px, scores within 1e-3 in fp32
+    (TF32 off)."""
+    import numpy as np
+
+    from person_capture_tpu_torch.models import scrfd as SD
+    from person_capture_tpu_torch.models.bridge import load_scrfd
+    from person_capture_tpu_torch.models.zoo import resolve_weights
+    from person_capture_tpu_torch.parallel.mesh import (
+        build_sharded_fullframe_detect, make_mesh)
+    from person_capture_tpu_torch.video.synthetic import (FacePlacement,
+                                                          draw_face)
+
+    size, slab = 1408, 352
+    canvases = np.full((2, size, size, 3), 70, np.uint8)
+    for i in range(2):
+        y = slab * (2 * i + 1) + 60
+        draw_face(canvases[i], FacePlacement(0, 0, (200, y, 320, y + 130)))
+        edge = slab * (i + 1)
+        draw_face(canvases[i], FacePlacement(0, 1, (900, edge - 70,
+                                                    1030, edge + 70)))
+    canvases = canvases.astype(np.float32)
+    weights = resolve_weights("auto", "scrfd_2.5g")
+    dt = getattr(torch, dtype)
+    run = build_sharded_fullframe_detect(
+        make_mesh("data:1,model:4", devices=[cuda] * 4), det_size=size,
+        dtype=dt, scrfd_vars=weights)
+    assert run.spatial
+    got = {k: v.cpu().numpy() for k, v in
+           run(canvases, np.ones(2, np.float32), 0.5).items()}
+    model = load_scrfd(SD.SCRFD(SD.SCRFD_2_5G), weights).eval().to(
+        device=cuda, dtype=dt)
+    want = {k: v.cpu().numpy() for k, v in SD.detect_faces(
+        model, torch.from_numpy(canvases).to(cuda), torch.ones(2), 0.5,
+        8).items()}
+    m = want["mask"]
+    assert m.sum(1).tolist() == [2, 2]
+    np.testing.assert_array_equal(got["mask"], m)
+    assert np.abs(got["boxes"][m] - want["boxes"][m]).max() <= 0.5
+    if dtype == "float32":
+        assert np.abs(got["scores"][m] - want["scores"][m]).max() <= 1e-3
+
+
+@pytest.mark.cuda
+def test_sharded_train_step_on_one_card_matches_unsharded(cuda, no_tf32):
+    """One step of SCRFD-2.5G at 128 px, batch 8, on ``data:2,model:2``
+    over four entries of the card (TF32 off) against the unsharded step on
+    the same global batch: the loss rel ≤ 1e-4, npos equal, every gradient
+    and running statistic within 1e-4 of its leaf's largest entry."""
+    import copy
+
+    import numpy as np
+
+    from person_capture_tpu_torch.models import scrfd as SD
+    from person_capture_tpu_torch.parallel.mesh import (
+        build_sharded_train_step, make_mesh)
+    from person_capture_tpu_torch.train.loop import to_device
+    from person_capture_tpu_torch.train.scenes import sample_batch
+    from person_capture_tpu_torch.train.scrfd_synth import (build_targets,
+                                                            make_loss_fn)
+
+    cfg, size = SD.SCRFD_2_5G, 128
+    step, state, model = build_sharded_train_step(
+        make_mesh("data:2,model:2", devices=[cuda] * 4), scrfd_cfg=cfg,
+        size=size)
+    twin = copy.deepcopy(model)
+    d = sample_batch(np.random.default_rng(5), 8, size)
+    targets = build_targets(d["boxes"], d["kps"], d["gt_mask"], size,
+                            cfg.strides, cfg.num_anchors)
+    state, metrics = step(state, d["images"], targets)
+    loss, aux = make_loss_fn(twin)(to_device(d["images"], cuda),
+                                   to_device(targets, cuda))
+    loss.backward()
+    np.testing.assert_allclose(float(metrics["loss"]), float(loss),
+                               rtol=1e-4)
+    assert int(metrics["npos"]) == int(aux["npos"])
+    for p, q in zip(model.parameters(), twin.parameters()):
+        assert (p.grad - q.grad).abs().max() <= 1e-4 * q.grad.abs().max()
+    for (n, a), b in zip(model.named_buffers(), twin.buffers()):
+        if n.endswith(("running_mean", "running_var")):
+            assert (a - b).abs().max() <= 1e-4 * b.abs().max(), n
+
+
+@pytest.mark.cuda
+def test_dryrun_entry_on_the_card(cuda):
+    """``dryrun.entry()``: the fused SCRFD-2.5G + ArcFace-r50 step at the
+    JAX file's shapes on the card, outputs of the step's shapes."""
+    from person_capture_tpu_torch.dryrun import entry
+
+    fn, args = entry()
+    best_fd, boxes, mask, quality = fn(*args)
+    assert best_fd.shape == (2,) and boxes.shape == (2, 2, 4)
+    assert mask.shape == quality.shape == (2, 2)
+    assert best_fd.device.type == "cuda"
+    assert torch.isfinite(best_fd).all()

@@ -141,17 +141,40 @@ def test_processes_sharing_a_card_are_refused_unless_asked(
     assert mesh.owners.tolist() == [0] * cards + [1] * cards
 
 
-def test_model_axis_across_processes_is_refused():
-    """A replica whose model-axis devices belong to two processes: the
-    ValueError names the setting that avoids it."""
+def test_model_axis_across_processes_is_refused(monkeypatch):
+    """A replica whose model-axis devices belong to two processes (refused
+    before the port carried it) is accepted: each rank computes every
+    replica in which it holds a device and is handed its rows, the rank of
+    a replica's first device leads it, and each rank's ColumnParallel
+    holds only its own column slice; the two ranks' slices, in row order,
+    are the layer's output. (Two real processes:
+    ``tests/test_torch_multihost.py``.)"""
+    from person_capture_tpu_torch.parallel import multihost as MH
+
     devs = np.empty(4, dtype=object)
     devs[:] = [torch.device("cpu")] * 4
     mesh = TM.Mesh(devs.reshape(2, 2), ("data", "model"),
                    np.array([[0, 1], [0, 1]]))
-    with pytest.raises(ValueError, match=r"--mesh data:N,model:K"):
-        mesh.replica_owners()
-    with pytest.raises(ValueError, match="spans processes"):
-        TM.shard_params_for_tp(torch.nn.Linear(4, 4), mesh)
+    assert mesh.replica_owners().tolist() == [0, 0]
+    torch.manual_seed(0)
+    layer = torch.nn.Linear(6, 4)
+    x = torch.randn(3, 6)
+    frames = np.arange(8)
+    monkeypatch.setattr(MH, "is_multiprocess", lambda: True)
+    slices = []
+    for rank in (0, 1):
+        monkeypatch.setattr(MH, "process_index", lambda: rank)
+        assert mesh.local_replicas() == [0, 1]
+        assert MH.make_global_batch(mesh, frames).tolist() == \
+            frames.tolist()
+        row = TM.RowComm(mesh.replica_devices()[0], [0, 1])
+        wrapped = TM.ColumnParallel(layer, row)
+        assert row.local == [rank] and len(wrapped.shards) == 1
+        with torch.no_grad():
+            slices.append(wrapped.shards[0](x))
+    np.testing.assert_allclose(torch.cat(slices, -1).numpy(),
+                               layer(x).detach().numpy(), atol=1e-6,
+                               rtol=0)
 
 
 def _bank(rng, k, d, live):
@@ -198,7 +221,7 @@ def test_column_parallel_equals_the_layer(layer):
     x = (torch.randn(3, 5, bare.in_features)
          if isinstance(bare, torch.nn.Linear)
          else torch.randn(3, bare.in_channels, 9, 7))
-    wrapped = TM.ColumnParallel(bare, [torch.device("cpu")] * 2)
+    wrapped = TM.ColumnParallel(bare, TM.RowComm([torch.device("cpu")] * 2))
     assert len(wrapped.shards) == 2
     with torch.no_grad():
         np.testing.assert_allclose(wrapped(x).numpy(), bare(x).numpy(),
@@ -414,12 +437,37 @@ def test_sharded_step_keeps_the_embedder_settings(settings):
 
 
 def test_check_ported_accepts_the_mesh_and_multihost(tmp_path):
+    """The CLI refuses no mesh (its up-front check is gone): the runtime
+    built from ``--mesh data:2,model:2 --multihost`` is the sharded
+    backend, and it finds the unsharded backend's faces."""
     from person_capture_tpu_torch import main as M
 
     ap = M.build_parser()
-    args = ap.parse_args(["--video", "v.mp4", "--ref", "r.png", "--out",
-                          str(tmp_path), "--device", "cpu", "--mesh",
-                          "data:2,model:2", "--multihost"])
+    args = ap.parse_args([
+        "--video", "v.mp4", "--ref", "r.png", "--out", str(tmp_path),
+        "--device", "cpu", "--mesh", "data:2,model:2", "--multihost",
+        "--face-model", "scrfd_tiny", "--arcface-model", "arcface_tiny",
+        "--det-size", str(DET), "--compute-dtype", "float32",
+        "--face-det-conf", "0.0",
+        "--set", "compose_detect_person_for_face=false",
+        "--set", "face_fullframe_when_missed=false"])
     cfg = M.build_config(args, ap)
     assert cfg.tpu_mesh == "data:2,model:2"
-    M.check_ported(cfg, args)
+    sharded = M.build_runtime(cfg, args, ap)["inner_face"]
+    assert isinstance(sharded, TB.ShardedScrfdArcFaceBackend)
+    assert sharded.mesh.shape == {"data": 2, "model": 2}
+    single = TB.ScrfdArcFaceBackend(
+        SD.TINY, AF.TINY, det_size=DET, score_thresh=0.0,
+        max_faces=cfg.tpu_max_faces, dtype=torch.float32, device="cpu",
+        transfer_format="bgr", scrfd_weights=sharded._run.scrfd_vars,
+        arcface_weights=sharded._run.arcface_vars)
+    frames = _inputs()[0]
+    got = sharded.extract_batch(frames, np.ones(8, bool))
+    want = single.extract_batch(frames, np.ones(8, bool))
+    np.testing.assert_array_equal(got["mask"], want["mask"])
+    assert want["mask"].any()
+    np.testing.assert_allclose(got["boxes"], want["boxes"], atol=TOL,
+                               rtol=0)
+    m = want["mask"]
+    np.testing.assert_allclose(got["feats"][m], want["feats"][m], atol=TOL,
+                               rtol=0)

@@ -2,15 +2,20 @@
 the CPU.
 
 - The single-process pass-throughs, as the JAX package's helpers.
-- A 2-process cluster of the sharded pre-scan step: both ranks hold the
-  same gathered result, equal to the single-process step.
-- A 2-process cluster of the port's CLI (``--multihost --coordinator``)
-  with ``--mesh data:2,model:2`` on the fixture of the JAX package's
+- A 2-process cluster of the sharded pre-scan step on ``data:4`` and on
+  meshes whose model axis spans both processes (``model:2``,
+  ``data:1,model:2``, ``model:2,data:2``), and of the spatially sharded
+  detect on the latter two: both ranks hold the same gathered result,
+  equal (≤ 1e-5, masks equal) to the single-process ``data:4`` step or
+  ``data:2,model:2`` step and detect.
+- 2-process clusters of the port's CLI (``--multihost --coordinator``)
+  with ``--mesh data:2,model:2`` and with ``--mesh model:2,data:2`` (every
+  replica across both processes) on the fixture of the JAX package's
   ``tests/test_multihost.py`` (40 frames of 128 px, SCRFD TINY with its
   bundled weights, ArcFace TINY): the primary's and ``.proc1``'s frames are
-  identical, equal to the port's single-process mesh run, and that run's
-  frames equal the JAX CLI's on the same fixture and flags. Both CLIs load
-  one ArcFace ``.npz`` (each package's random init draws other numbers).
+  identical, equal to the port's single-process mesh run, and equal to the
+  JAX CLI's on the same fixture and flags. Both CLIs load one ArcFace
+  ``.npz`` (each package's random init draws other numbers).
 
 Each child process has its own timeout; on expiry every child is killed
 and the test fails.
@@ -123,71 +128,155 @@ import json, sys
 import numpy as np, torch
 torch.set_num_threads(1)
 from person_capture_tpu_torch.parallel import multihost as MH
-rank, port = int(sys.argv[1]), sys.argv[2]
+rank, port, specs = int(sys.argv[1]), sys.argv[2], sys.argv[3:]
 MH.initialize(coordinator=f"127.0.0.1:{port}", num_processes=2,
               process_id=rank)
 assert MH.is_multiprocess() and MH.is_primary() == (rank == 0)
-from person_capture_tpu_torch.models import arcface as AF, scrfd as SD
-from person_capture_tpu_torch.parallel.mesh import (
-    build_sharded_prescan_step, make_mesh)
-try:
-    make_mesh("model:2", device="cpu").replica_owners()
-    raise SystemExit("a model axis across processes was accepted")
-except ValueError:
-    pass
-mesh = make_mesh("data:4", device="cpu")
-assert mesh.local_replicas() == [2 * rank, 2 * rank + 1]
-run = build_sharded_prescan_step(mesh, scrfd_cfg=SD.TINY,
-                                 arcface_cfg=AF.TINY, det_size=64,
-                                 max_faces=2, dtype=torch.float32, seed=0)
-rng = np.random.default_rng(7)
-frames = rng.integers(0, 255, (8, 64, 64, 3)).astype(np.uint8)
-bank = np.zeros((2, AF.TINY.embed_dim), np.float32)
-bank[0, 0] = 1.0
-out = run(frames, bank, np.array([True, False]), score_thresh=0.5)
-print("MHRESULT " + json.dumps({k: out[k].tolist() for k in
-                                ("best_fd", "quality", "scores", "mask")}))
+sys.path.insert(0, "tests")
+from test_torch_multihost import run_step, run_spatial
+from person_capture_tpu_torch.parallel.mesh import make_mesh
+out = {}
+for spec in specs:
+    mesh = make_mesh(spec, device="cpu")
+    if spec == "data:4":
+        assert mesh.local_replicas() == [2 * rank, 2 * rank + 1]
+    else:      # every replica's model axis spans both processes
+        assert (mesh.owners.reshape(-1) == [0] * (mesh.size // 2)
+                + [1] * (mesh.size // 2)).all()
+        assert mesh.local_replicas() == list(range(mesh.num_replicas()))
+        out[spec + " spatial"] = run_spatial(mesh)
+    out[spec] = run_step(mesh)
+out["bf16"] = run_step(make_mesh("data:1,model:2", device="cpu"),
+                       torch.bfloat16)
+print("MHRESULT " + json.dumps(out))
 """
 
+STEP_KEYS = ("best_fd", "quality", "scores", "mask", "boxes", "feats")
 
-def test_two_process_step_matches_single_process():
+
+def run_step(mesh, dtype=torch.float32) -> dict:
+    """The sharded pre-scan step (SCRFD and ArcFace TINY at their seeded
+    init, det 64) on 8 seeded frames, as float32 lists."""
     from person_capture_tpu_torch.models import arcface as AF
     from person_capture_tpu_torch.models import scrfd as SD
-    from person_capture_tpu_torch.parallel.mesh import (
-        build_sharded_prescan_step, make_mesh)
+    from person_capture_tpu_torch.parallel.mesh import \
+        build_sharded_prescan_step
 
-    port = _free_port()
-    outs = _wait_children(_start_children(
-        [[sys.executable, "-c", _STEP_CHILD, str(i), str(port)]
-         for i in range(2)]))
-    results = [json.loads(next(line for line in so.splitlines()
-                               if line.startswith("MHRESULT "))[9:])
-               for so in outs]
-    assert results[0] == results[1]
-    run = build_sharded_prescan_step(
-        make_mesh("data:4", device="cpu"), scrfd_cfg=SD.TINY,
-        arcface_cfg=AF.TINY, det_size=64, max_faces=2,
-        dtype=torch.float32, seed=0)
+    run = build_sharded_prescan_step(mesh, scrfd_cfg=SD.TINY,
+                                     arcface_cfg=AF.TINY, det_size=64,
+                                     max_faces=2, dtype=dtype, seed=0)
     rng = np.random.default_rng(7)
     frames = rng.integers(0, 255, (8, 64, 64, 3)).astype(np.uint8)
     bank = np.zeros((2, AF.TINY.embed_dim), np.float32)
     bank[0, 0] = 1.0
-    want = run(frames, bank, np.array([True, False]), score_thresh=0.5)
-    for k in ("best_fd", "quality", "scores"):
-        np.testing.assert_allclose(np.asarray(results[0][k]),
-                                   want[k].numpy(), atol=1e-5, rtol=1e-5)
-    assert results[0]["mask"] == want["mask"].tolist()
+    out = run(frames, bank, np.array([True, False]), score_thresh=0.5)
+    return {k: (out[k] if k == "mask" else out[k].float()).tolist()
+            for k in STEP_KEYS}
+
+
+def run_spatial(mesh) -> dict:
+    """The spatially sharded detect (SCRFD TINY, bundled weights, det 128)
+    on 4 seeded canvases, every slot filled, as lists."""
+    from person_capture_tpu_torch.models import scrfd as SD
+    from person_capture_tpu_torch.models.zoo import resolve_weights
+    from person_capture_tpu_torch.parallel.mesh import \
+        build_sharded_fullframe_detect
+
+    run = build_sharded_fullframe_detect(
+        mesh, scrfd_cfg=SD.TINY, det_size=128, max_faces=4,
+        dtype=torch.float32, scrfd_vars=resolve_weights("auto",
+                                                        "scrfd_tiny"))
+    canvases = np.random.default_rng(5).uniform(
+        0, 255, (4, 128, 128, 3)).astype(np.float32)
+    out = run(canvases, np.ones(4, np.float32), score_thresh=0.0)
+    return {k: out[k].tolist() for k in ("boxes", "scores", "mask")}
+
+
+CLUSTER_SPECS = ("data:4", "model:2", "data:1,model:2", "model:2,data:2")
+
+
+@pytest.fixture(scope="module")
+def step_cluster():
+    """Both ranks' results of one 2-process cluster over every mesh of
+    ``CLUSTER_SPECS``, and the single-process results they are held to:
+    the step on ``data:4`` and on ``data:2,model:2``, and the spatial
+    detect on ``data:2,model:2``."""
+    from person_capture_tpu_torch.parallel.mesh import make_mesh
+
+    port = _free_port()
+    procs = _start_children(
+        [[sys.executable, "-c", _STEP_CHILD, str(i), str(port),
+          *CLUSTER_SPECS] for i in range(2)])
+    try:
+        single = {"data:4": run_step(make_mesh("data:4", device="cpu"))}
+        both = make_mesh("data:2,model:2", device="cpu")
+        single["model"] = run_step(both)
+        single["spatial"] = run_spatial(both)
+        single["bf16"] = run_step(make_mesh("data:1,model:2", device="cpu"),
+                                  torch.bfloat16)
+    finally:
+        outs = _wait_children(procs)
+    ranks = [json.loads(next(line for line in so.splitlines()
+                             if line.startswith("MHRESULT "))[9:])
+             for so in outs]
+    return ranks, single
+
+
+def _assert_same(got: dict, want: dict) -> None:
+    assert got["mask"] == want["mask"]
+    for k in want:
+        if k != "mask":
+            np.testing.assert_allclose(np.asarray(got[k]),
+                                       np.asarray(want[k]), atol=1e-5,
+                                       rtol=1e-5, err_msg=k)
+
+
+def test_two_process_step_matches_single_process(step_cluster):
+    """``data:4`` over two processes: both ranks hold the single-process
+    result. A model axis across the processes (``model:2``, refused
+    before the port carried it) is accepted and gives the single-process
+    result too."""
+    ranks, single = step_cluster
+    assert ranks[0] == ranks[1]
+    _assert_same(ranks[0]["data:4"], single["data:4"])
+    _assert_same(ranks[0]["model:2"], single["model"])
+
+
+@pytest.mark.parametrize("spec", ["data:1,model:2", "model:2,data:2"])
+@pytest.mark.parametrize("program", ["step", "spatial"])
+def test_model_axis_across_processes_matches_single_process(step_cluster,
+                                                            spec, program):
+    """Every replica's model axis spans the two processes: the pre-scan
+    step (its column slices all-gathered over the row's gloo subgroup)
+    and the spatial detect (its slabs' halos and GroupNorm moments over
+    it) give, on both ranks, the single-process ``data:2,model:2``
+    result."""
+    ranks, single = step_cluster
+    key = spec if program == "step" else spec + " spatial"
+    for rank in ranks:
+        _assert_same(rank[key], single["model" if program == "step"
+                                        else "spatial"])
+
+
+def test_model_axis_across_processes_in_bf16(step_cluster):
+    """The bf16 step with its model axis across the processes (the slices
+    cross gloo as float16 bits, gloo having no bf16): on both ranks, the
+    same mesh's bf16 result in one process."""
+    ranks, single = step_cluster
+    for rank in ranks:
+        _assert_same(rank["bf16"], single["bf16"])
 
 
 # ------------------------------------------------------------- the CLI
 
 SPAN = (8, 28)
 MESH = "data:2,model:2"
+ACROSS = "model:2,data:2"     # over two processes: every row spans both
 
 
-def _cli_argv(d, out):
+def _cli_argv(d, out, mesh=MESH):
     return ["--video", str(d / "m.mp4"), "--ref", str(d / "ref.png"),
-            "--out", str(out), "--device", "cpu", "--mesh", MESH,
+            "--out", str(out), "--device", "cpu", "--mesh", mesh,
             "--face-model", "scrfd_tiny", "--arcface-model", "arcface_tiny",
             "--arcface-weights", str(d / "arc.npz"),
             "--det-size", "128", "--batch", "2", "--compute-dtype",
@@ -230,36 +319,48 @@ def cli_runs(tmp_path_factory):
     _random_init(arc, 1)
     save_npz_variables(str(d / "arc.npz"), flax_variables(arc))
 
-    port = _free_port()
-    cluster = d / "cluster"
-    procs = _start_children([
-        [sys.executable, "-m", "person_capture_tpu_torch.main",
-         *_cli_argv(d, cluster), "--multihost",
-         "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
-         "--process-id", str(i)] for i in range(2)])
-    # the single-process runs go while the cluster runs
+    clusters = {"cluster": MESH, "across": ACROSS}
+    argvs = []
+    for name, mesh in clusters.items():
+        port = _free_port()
+        argvs += [[sys.executable, "-m", "person_capture_tpu_torch.main",
+                   *_cli_argv(d, d / name, mesh), "--multihost",
+                   "--coordinator", f"127.0.0.1:{port}",
+                   "--num-processes", "2", "--process-id", str(i)]
+                  for i in range(2)]
+    procs = _start_children(argvs)
+    # the single-process runs go while the clusters run
     try:
         assert TM.main(_cli_argv(d, d / "single")) == 0
         assert JM.main(_cli_argv(d, d / "jax")) == 0
     finally:
         outs = _wait_children(procs)
     assert all("Done. Hits:" in so for so in outs), outs
-    return {"primary": _hit_frames(cluster),
-            "proc1": _hit_frames(cluster / ".proc1"),
-            "single": _hit_frames(d / "single"),
+    runs = {"single": _hit_frames(d / "single"),
             "jax": _hit_frames(d / "jax")}
+    for name in clusters:
+        runs[name] = {"primary": _hit_frames(d / name),
+                      "proc1": _hit_frames(d / name / ".proc1")}
+    return runs
 
 
 def test_two_process_cli_ranks_agree(cli_runs):
-    primary = cli_runs["primary"]
+    primary = cli_runs["cluster"]["primary"]
     assert primary, "the multi-process CLI produced no hits"
     in_span = [f for f in primary if SPAN[0] <= f <= SPAN[1]]
     assert len(in_span) >= max(2, len(primary) // 2)
-    assert cli_runs["proc1"] == primary
+    assert cli_runs["cluster"]["proc1"] == primary
 
 
 def test_two_process_cli_matches_single_process_mesh_run(cli_runs):
-    assert cli_runs["primary"] == cli_runs["single"]
+    assert cli_runs["cluster"]["primary"] == cli_runs["single"]
+
+
+def test_model_axis_across_processes_cli_matches_jax_cli(cli_runs):
+    """``--mesh model:2,data:2`` over two processes puts each replica's
+    model axis across both: both ranks write the JAX mesh CLI's frames."""
+    across = cli_runs["across"]
+    assert across["primary"] == across["proc1"] == cli_runs["jax"]
 
 
 def test_mesh_cli_matches_jax_cli(cli_runs):

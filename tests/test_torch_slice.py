@@ -251,17 +251,79 @@ def _parsed(tmp_path, sets, extra):
 ])
 def test_unported_branches_raise_value_error(tmp_path, monkeypatch, sets,
                                              extra, setting):
-    """The one branch of the JAX runtime the port does not carry, a model
-    mesh axis that spans processes (here two processes of one CPU entry
-    each), is refused up front with the setting that avoids it — never
-    built smaller in silence."""
-    from person_capture_tpu_torch.parallel import multihost as MH
+    """A model mesh axis that spans processes (here two processes of one CPU
+    entry each), which the port refused up front naming ``setting`` until
+    it carried it, is accepted: each process builds the CLI's runtime with
+    its own column slices, and both find the faces of the same mesh in one
+    process (masks equal, boxes and feats ≤ 1e-5)."""
+    import json
+    import socket
+    import subprocess
+    import sys
 
-    monkeypatch.setattr(MH, "process_count", lambda: 2)
     ap, args, cfg = _parsed(tmp_path, sets, extra)
-    with pytest.raises(ValueError, match="spans processes") as err:
-        TM.build_runtime(cfg, args, ap)
-    assert setting in str(err.value)
+    assert cfg.tpu_mesh == "data:1,model:2", setting
+    frames = np.full((4, H, W, 3), 70, np.uint8)
+    for i in range(4):
+        draw_face(frames[i], FacePlacement(i, 0, (20 + 8 * i, 10, 110 + 8 * i,
+                                                  110)))
+    np.save(tmp_path / "frames.npy", frames)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(PYTHONPATH=repo, OMP_NUM_THREADS="1")
+    procs = []
+    for i in range(2):
+        argv = _argv(tmp_path, tmp_path / "out") + list(extra) + [
+            "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+            "--process-id", str(i)]
+        for s in sets:
+            argv += ["--set", s]
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", _ACROSS_CHILD, json.dumps(argv),
+             str(tmp_path / "frames.npy")], cwd=repo, env=env,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    outs = []
+    try:
+        for p in procs:
+            so, se = p.communicate(timeout=240)
+            assert p.returncode == 0, se[-3000:]
+            outs.append(json.loads(so.split("RESULT ", 1)[1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    # the same mesh in this one process (``--multihost`` joins nothing
+    # before ``maybe_init_multihost``)
+    single = TM.build_runtime(cfg, args, ap)["inner_face"]
+    want = single.extract_batch(frames, np.ones(4, bool))
+    assert want["mask"].any(1).all()
+    for got in outs:
+        np.testing.assert_array_equal(np.asarray(got["mask"]), want["mask"])
+        for k in ("boxes", "feats"):
+            np.testing.assert_allclose(np.asarray(got[k]), want[k],
+                                       atol=1e-5, rtol=1e-5, err_msg=k)
+
+
+_ACROSS_CHILD = r"""
+import json, sys
+import numpy as np, torch
+torch.set_num_threads(1)
+from person_capture_tpu_torch import main as M
+argv, frames = json.loads(sys.argv[1]), np.load(sys.argv[2])
+ap = M.build_parser()
+args = ap.parse_args(argv)
+cfg = M.build_config(args, ap)
+cfg.out_dir = M.maybe_init_multihost(args, cfg.out_dir)
+face = M.build_runtime(cfg, args, ap)["inner_face"]
+assert face.mesh.owners.tolist() == [[0, 1]]
+out = face.extract_batch(frames, np.ones(len(frames), bool))
+print("RESULT " + json.dumps({k: out[k].tolist()
+                              for k in ("mask", "boxes", "feats")}))
+"""
 
 
 @pytest.mark.parametrize("sets,extra", [
