@@ -156,8 +156,42 @@ non-zero without printing a result:
               ``data:1`` step; ms per step against the same mesh in one
               process; (d) ``dryrun.dryrun_multichip(8, full=True)`` and
               its summary line.
+18. user paths — the paths of the CLI that phases 4-17 leave out:
+              (a) the verify recipe as users type it: a 320×240 SDR video
+              (faces in (20, 60) and (90, 120), seed 1), ``--batch 8
+              --det-size 320 --face-det-conf 0.3 --face-thresh 0.9`` at the
+              defaults otherwise, read by the plain SDR reader: the frames
+              20, 22, …, 60 and 90, 92, …, 120, every crop decoding, no
+              tone-map launch; (b) its rotated twin (``np.rot90(frame,
+              3)``, portrait): the same frames, with the recovery ladder's
+              probes and ``recovered_faces``; (c) ``--preset
+              presets/solidpreset_tpu.json`` with no ``--batch`` on phase
+              8's fixture, phase 4's and a 10-s shot of phase 8's kind:
+              hits and stills as phase 4 checks them, main-pass batches 128
+              frames wide, each crop within 1 px of the ratio it chose and
+              all three ratios among the runs, ``dataset_out/`` in each and
+              a selection from the long shot; (d) the curator CLI alone over
+              (c)'s stills on the card and with ``--device cpu`` at once,
+              as typed and at the engine's sharpness gate: the same
+              selection; (e) phase 4's settings with ``use_arcface=false``
+              (ViT-L-14 at its seeded random init) on (a)'s video in bf16
+              and fp32 (TF32 off): every aligned chip embedded by the
+              tower, 16 of its chips bf16 against fp32 at cosine ≥ 0.99,
+              the same frames but those whose fp32 face distance lies
+              within 0.01 of the threshold; (f) ``--reid-weights x.pt``
+              written from the bundled clip_reid_s: phase 9's frames; a
+              ViT-B-32 tower at a seeded init through a ``.pt`` within 1e-5
+              of itself, bf16 against fp32 at cosine ≥ 0.99, the 16-crop
+              batch times of both in turns; (g) two ``python -m
+              person_capture_tpu_torch.sweep --watch --shard i/2``
+              processes sharing the card over an SDR corpus that grows
+              from two videos to four while they run: each video run by
+              the shard ``shard_select(stable=True)`` names, its
+              ``index.csv`` decisions those of a one-process sweep, both
+              heartbeats ending ``exited`` as the doctor reads them, and
+              the doctor's decode rate.
 
-Phases 8 to 17 reach no hand-written kernel beyond the tone-map: the CLIP
+Phases 8 to 18 reach no hand-written kernel beyond the tone-map: the CLIP
 tower, the curator's pHash and MMR, the ONNX interpreter, the loaders, the
 sweep, the doctor, the train steps, the GUI and the mesh programs are torch
 ops and host code, as they are XLA ops and host code in the JAX package.
@@ -519,10 +553,13 @@ class _P010FromVideo:
             self._cap.release()
 
 
-def make_fixture(work: str, seed: int = 1, segments=TRUTH_SEGMENTS, **body):
-    """The verify recipe's fixture, re-coded as PQ: (video, ref, truth).
-    ``body``: ``generate_video``'s ``draw_body`` and ``face_px``; another
-    ``seed`` and ``segments`` give another video of the same kind."""
+def make_fixture(work: str, seed: int = 1, segments=TRUTH_SEGMENTS,
+                 frames: int = 150, size=(640, 480), pq: bool = True,
+                 **body):
+    """The verify recipe's fixture at ``size``, re-coded as PQ unless
+    ``pq=False``: (video, ref, truth). ``body``: ``generate_video``'s
+    ``draw_body`` and ``face_px``; another ``seed``, ``segments`` and
+    ``frames`` give another video of the same kind."""
     import cv2
     import numpy as np
 
@@ -534,10 +571,13 @@ def make_fixture(work: str, seed: int = 1, segments=TRUTH_SEGMENTS, **body):
     os.makedirs(work, exist_ok=True)
     sdr = os.path.join(work, "sdr.mp4")
     vid = os.path.join(work, "vid.mp4")
-    sv = generate_video(sdr, width=640, height=480, fps=30,
-                        total_frames=150, segments=list(segments),
+    sv = generate_video(sdr, width=size[0], height=size[1], fps=30,
+                        total_frames=frames, segments=list(segments),
                         moving=True, seed=seed, **body)
-    write_pq_video(sdr, vid)
+    if pq:
+        write_pq_video(sdr, vid)
+    else:
+        vid = sdr
     ref = np.full((200, 200, 3), 60, np.uint8)
     draw_face(ref, FacePlacement(0, 0, (40, 40, 160, 160)))
     ref_path = os.path.join(work, "ref.png")
@@ -612,12 +652,32 @@ def check_stills(out: str, truth) -> list:
     return rows
 
 
-def run_cli(work: str, name: str, fixture, sets, flags=(), hook=None):
+def check_crops(out: str) -> list:
+    """An SDR run's outputs: every crop of ``index.csv`` decodes; returns
+    the index rows."""
+    import csv
+
+    import cv2
+
+    with open(os.path.join(out, "index.csv")) as fh:
+        rows = list(csv.DictReader(fh))
+    for r in rows:
+        path = os.path.join(out, "crops", r["crop_path"])
+        img = cv2.imread(path)
+        require(img is not None and img.size > 0, f"crop {path} does not "
+                f"decode")
+    return rows
+
+
+def run_cli(work: str, name: str, fixture, sets, flags=(), hook=None,
+            hdr: bool = True):
     """One CLI run through ``build_runtime`` → ``make_engine`` → ``run``
     with HDR stills from ``_P010FromVideo``, the tone-map counts set to 0
     just before the run and read just after; requires the run to succeed
     with hits and stills as :func:`check_stills` does. ``hook(runtime,
-    engine)`` runs before the run."""
+    engine)`` runs before the run. ``hdr=False``: an SDR source read as
+    such (see :func:`sdr_source`), no HDR planes, every crop decoding
+    (:func:`check_crops`)."""
     from person_capture_tpu_torch import main as M
 
     vid, ref_path, truth = fixture
@@ -626,7 +686,9 @@ def run_cli(work: str, name: str, fixture, sets, flags=(), hook=None):
     t0 = time.perf_counter()
     runtime = M.build_runtime(cfg, args, ap)
     eng = M.make_engine(cfg, runtime, status=lambda m: None)
-    eng.hdr_source_factory = lambda video, w, h, fps: _P010FromVideo(video)
+    if hdr:
+        eng.hdr_source_factory = lambda video, w, h, fps: _P010FromVideo(
+            video)
     if hook is not None:
         hook(runtime, eng)
     setup_s = time.perf_counter() - t0
@@ -636,7 +698,7 @@ def run_cli(work: str, name: str, fixture, sets, flags=(), hook=None):
     run_s = time.perf_counter() - t0
     launches = read_launches()
     require(res.ok, f"{name} run failed: {res.error}")
-    rows = check_stills(out, truth)
+    rows = check_stills(out, truth) if hdr else check_crops(out)
     return dict(out=out, cfg=cfg, runtime=runtime, engine=eng, result=res,
                 rows=rows, hit_frames=[int(r["frame"]) for r in rows],
                 launches=launches, setup_seconds=setup_s, seconds=run_s)
@@ -952,10 +1014,10 @@ def watch_curator(seen: dict):
 IMAGE_EXTS = (".jpg", ".jpeg", ".png", ".webp")
 
 
-def check_curation(out: str) -> dict:
-    """``dataset_out/`` holds metrics.json, selection_debug.csv and 1 to
-    min(200, crops) images, each one of the run's crops; returns the
-    curator's metrics with the selected names."""
+def check_curation(out: str, min_selected: int = 1) -> dict:
+    """``dataset_out/`` holds metrics.json, selection_debug.csv and
+    ``min_selected`` (1) to min(200, crops) images, each one of the run's
+    crops; returns the curator's metrics with the selected names."""
     ds = os.path.join(out, "dataset_out")
     require(os.path.isdir(ds), "no dataset_out/ after a run with curation")
     files = os.listdir(ds)
@@ -965,7 +1027,7 @@ def check_curation(out: str) -> dict:
     picked = sorted(f for f in files if f.lower().endswith(IMAGE_EXTS))
     crops = {f for f in os.listdir(os.path.join(out, "crops"))
              if f.lower().endswith(IMAGE_EXTS)}
-    require(1 <= len(picked) <= min(200, len(crops)),
+    require(min_selected <= len(picked) <= min(200, len(crops)),
             f"{len(picked)} images selected from {len(crops)} crops")
     stray = sorted(set(picked) - crops)
     require(not stray, f"selected files that are not crops: {stray}")
@@ -1104,7 +1166,8 @@ def phase_reid(work: str, fixture) -> dict:
                         for k, v in flops.items()},
          launches=run["launches"], setup_seconds=run["setup_seconds"],
          seconds=run["seconds"], stages=run["engine"]._timer.summary())
-    return run["launches"]
+    return dict(launches=run["launches"], hit_frames=run["hit_frames"],
+                crops=crops)
 
 
 def phase_yolo_face(work: str, fixture) -> dict:
@@ -1795,52 +1858,69 @@ def phase_gui(work: str, fixture, phase4_launches: dict, phase4_frames):
 MESH_CHILD_TIMEOUT_S = 300
 
 
-def start_children(entry: str, argvs):
-    """One process per ``argvs`` entry running ``chip_smoke.<entry>(argv)``
-    on the one card (``PERSON_CAPTURE_SHARE_CARDS=1``: they share it on
-    purpose), output to files: a child blocked on a full pipe would stall
-    the other one in the collectives."""
+def start_processes(logdir: str, specs, env=None):
+    """One ``python <args>`` process per ``(name, args)`` of ``specs`` in
+    the repo's root, its output to the file ``logdir/<name>.log``: a child
+    blocked on a full pipe would stall the others in the collectives.
+    Returns ``[(name, process, log path)]``."""
     here = os.path.dirname(os.path.abspath(__file__))
-    code = (f"import sys, chip_smoke; "
-            f"sys.exit(chip_smoke.{entry}(sys.argv[1:]))")
-    env = dict(os.environ, PERSON_CAPTURE_SHARE_CARDS="1")
-    logs = [(tempfile.TemporaryFile("w+"), tempfile.TemporaryFile("w+"))
-            for _ in argvs]
-    procs = [subprocess.Popen([sys.executable, "-c", code, *argv], cwd=here,
-                              env=env, stdout=so, stderr=se, text=True)
-             for argv, (so, se) in zip(argvs, logs)]
-    return procs, logs
+    env = dict(os.environ if env is None else env, PYTHONUNBUFFERED="1")
+    os.makedirs(logdir, exist_ok=True)
+    started = []
+    for name, args in specs:
+        log = os.path.join(logdir, f"{name}.log")
+        with open(log, "w") as fh:
+            p = subprocess.Popen([sys.executable, *args], cwd=here, env=env,
+                                 stdout=fh, stderr=subprocess.STDOUT,
+                                 text=True)
+        started.append((name, p, log))
+    return started
 
 
-def finish_children(started) -> list:
-    """Wait for each child of :func:`start_children` within
-    ``MESH_CHILD_TIMEOUT_S``; each must exit 0. Returns the ``"child"``
-    JSON line of each; every child still running is killed."""
-    procs, logs = started
-    children = []
+def finish_processes(started, timeout_s: float = MESH_CHILD_TIMEOUT_S):
+    """Wait for each process of :func:`start_processes` within
+    ``timeout_s`` in all; each must exit 0. Returns ``{name: (its last
+    "child" JSON line, its output)}``; every process still running is
+    killed."""
+    done = {}
+    deadline = time.monotonic() + timeout_s
     try:
-        for i, (p, (so, se)) in enumerate(zip(procs, logs)):
+        for name, p, log in started:
             try:
-                p.wait(timeout=MESH_CHILD_TIMEOUT_S)
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
             except subprocess.TimeoutExpired:
-                raise RuntimeError(f"check failed: process {i} ran past "
-                                   f"{MESH_CHILD_TIMEOUT_S} s")
-            so.seek(0)
-            se.seek(0)
-            so, se = so.read(), se.read()
-            require(p.returncode == 0, f"process {i} exited "
-                    f"{p.returncode}:\n{so[-2000:]}\n{se[-2000:]}")
-            children.append(json.loads(
-                [ln for ln in so.splitlines() if '"child"' in ln][-1]))
+                raise RuntimeError(f"check failed: {name} ran past "
+                                   f"{timeout_s:.0f} s")
+            with open(log) as fh:
+                text = fh.read()
+            require(p.returncode == 0, f"{name} exited {p.returncode}:\n"
+                    f"{text[-3000:]}")
+            child = [ln for ln in text.splitlines() if '"child"' in ln]
+            done[name] = (json.loads(child[-1]), text)
     finally:
-        for p in procs:
+        for _, p, _ in started:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        for so, se in logs:
-            so.close()
-            se.close()
-    return children
+    return done
+
+
+def start_children(logdir: str, entry: str, argvs):
+    """One process per ``argvs`` entry running ``chip_smoke.<entry>(argv)``
+    on the one card (``PERSON_CAPTURE_SHARE_CARDS=1``: they share it on
+    purpose)."""
+    code = (f"import sys, chip_smoke; "
+            f"sys.exit(chip_smoke.{entry}(sys.argv[1:]))")
+    return start_processes(
+        logdir, [(f"{entry}{i}", ["-c", code, *argv])
+                 for i, argv in enumerate(argvs)],
+        env=dict(os.environ, PERSON_CAPTURE_SHARE_CARDS="1"))
+
+
+def finish_children(started) -> list:
+    """The ``"child"`` JSON line of each process of
+    :func:`start_children`, as :func:`finish_processes` checks them."""
+    return [child for child, _ in finish_processes(started).values()]
 
 
 def cli_child(argv) -> int:
@@ -1998,7 +2078,8 @@ def phase_mesh(work: str, fixture, phase4_frames) -> dict:
         argv += ["--set", setting]
     t0 = time.perf_counter()
     children = finish_children(start_children(
-        "cli_child", [argv + ["--process-id", str(i)] for i in range(2)]))
+        os.path.join(work, "logs"), "cli_child",
+        [argv + ["--process-id", str(i)] for i in range(2)]))
     multi_s = time.perf_counter() - t0
     primary = _index_frames(out)
     secondary = _index_frames(os.path.join(out, ".proc1"))
@@ -2234,8 +2315,9 @@ def across_processes(work: str, fixture) -> dict:
     np.savez(inputs, frames=frames, bank=bank, bank_mask=bank_mask)
     port = _free_port()
     outs = [os.path.join(work, f"across_{i}.npz") for i in range(2)]
-    started = start_children("step_child", [[str(i), str(port), inputs,
-                                             outs[i]] for i in range(2)])
+    started = start_children(os.path.join(work, "logs"), "step_child",
+                             [[str(i), str(port), inputs, outs[i]]
+                              for i in range(2)])
     try:
         # the same mesh in this process, while the children start
         card = torch.device("cuda", 0)
@@ -2289,6 +2371,747 @@ def phase_sharded(work: str, fixture) -> dict:
     return launches
 
 
+# phase 18: the verify recipe (README, the port's section) as its users
+# type it: an SDR 320×240 video, its flags, and the frames it must find
+RECIPE_FLAGS = ("--batch", "8", "--det-size", "320", "--face-det-conf", "0.3",
+                "--face-thresh", "0.9")
+RECIPE_FRAMES = list(range(20, 61, 2)) + list(range(90, 121, 2))
+PRESET = os.path.join(os.path.dirname(os.path.abspath(__file__)), "presets",
+                      "solidpreset_tpu.json")
+PRESET_RATIOS = ("1:1", "2:3", "3:4")
+# 18(c)'s long shot: one span the preset's 1.5-s gap samples six times
+PRESET_LONG = dict(frames=300, segments=[(20, 280, 0)], seed=3)
+VIT_B_32_SEED = 5
+# 18(g): four short SDR videos (seed, truth spans), two in the corpus from
+# the start and two dropped in while both watchers run
+WATCH_VIDEOS = ((21, [(8, 40, 0)]), (22, [(20, 52, 0)]),
+                (23, [(4, 30, 0)]), (24, [(30, 56, 0)]))
+WATCH_FRAMES = 60
+WATCH_POLL_S = 0.5
+WATCH_MAX_IDLE = 10
+# the flags of every 18(g) sweep: the recipe's, curation off
+WATCH_FLAGS = ("--prescan", *RECIPE_FLAGS, "--set", "curate_enable=false",
+               "--set", "prescan_cache_mode=off")
+INDEX_DECISIONS = ("frame", "x1", "y1", "x2", "y2", "crop_path", "ratio")
+# a frame whose fp32 face distance lies this near the threshold may fall
+# on either side of it in bf16
+NEAR_THRESHOLD = 0.01
+
+
+def rotate_video(src: str, dst: str) -> str:
+    """The recipe's rotated twin: ``np.rot90(frame, 3)`` of every frame,
+    written as an H×W (portrait) video."""
+    import cv2
+    import numpy as np
+
+    cap = cv2.VideoCapture(src)
+    w, h = (int(cap.get(p)) for p in (cv2.CAP_PROP_FRAME_WIDTH,
+                                      cv2.CAP_PROP_FRAME_HEIGHT))
+    writer = cv2.VideoWriter(dst, cv2.VideoWriter_fourcc(*"mp4v"),
+                             cap.get(cv2.CAP_PROP_FPS), (h, w))
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        writer.write(np.ascontiguousarray(np.rot90(frame, 3)))
+    writer.release()
+    cap.release()
+    return dst
+
+
+@contextlib.contextmanager
+def sdr_source():
+    """Phases 4-17 force the HDR path (``PERSON_CAPTURE_FORCE_HDR``); inside
+    this an SDR video is probed and read as SDR."""
+    forced = os.environ.pop("PERSON_CAPTURE_FORCE_HDR", None)
+    try:
+        yield
+    finally:
+        if forced is not None:
+            os.environ["PERSON_CAPTURE_FORCE_HDR"] = forced
+
+
+def watch_reader(seen: dict):
+    """Spy on ``open_analysis_reader``: the ``hdr`` flag the engine passes
+    and the reader class it gets, per call. Returns the undo."""
+    from person_capture_tpu_torch.video import reader as R
+
+    opened = R.open_analysis_reader
+    seen["readers"] = []
+
+    def spied(*a, **kw):
+        r = opened(*a, **kw)
+        seen["readers"].append([bool(kw.get("hdr")), type(r).__name__])
+        return r
+
+    R.open_analysis_reader = spied
+    return lambda: setattr(R, "open_analysis_reader", opened)
+
+
+def watch_ladder(seen: dict):
+    """Spy on the recovery ladder: frames it saw after the 0° pass, those
+    that came back empty, and the variants it probed by kind. Returns the
+    undo."""
+    import numpy as np
+
+    from person_capture_tpu_torch.pipeline import recovery as RC
+
+    make, recover = RC._make_variant, RC.RecoveringFaceBackend._recover
+    seen.update(ladder_frames=0, ladder_empty=0, probes={})
+
+    def made(frame, kind, param):
+        seen["probes"][kind] = seen["probes"].get(kind, 0) + 1
+        return make(frame, kind, param)
+
+    def recovering(self, frames, valid, out):
+        valid = np.asarray(valid, bool)
+        seen["ladder_frames"] += int(valid.sum())
+        seen["ladder_empty"] += int((valid & ~out["mask"].any(1)).sum())
+        return recover(self, frames, valid, out)
+
+    RC._make_variant = made
+    RC.RecoveringFaceBackend._recover = recovering
+
+    def restore():
+        RC._make_variant = make
+        RC.RecoveringFaceBackend._recover = recover
+
+    return restore
+
+
+def stage_split(stages: dict) -> dict:
+    """Phase 4's split of a run's ``StepTimer`` stages: seconds per timed
+    host stage, largest first."""
+    return dict(sorted(((k, v["total_s"]) for k, v in stages.items()),
+                       key=lambda kv: -kv[1]))
+
+
+def recipe_run(work: str, name: str, fixture) -> dict:
+    """One SDR run of the verify recipe: its flags at the CLI defaults (no
+    ``--set`` but the harness's cache and profile settings), read through
+    the plain reader, with the ladder watched."""
+    seen = {}
+    restores = [watch_reader(seen), watch_ladder(seen)]
+    try:
+        with sdr_source():
+            run = run_cli(work, name, fixture, sets=(), flags=RECIPE_FLAGS,
+                          hdr=False)
+    finally:
+        for restore in restores:
+            restore()
+    require(seen["readers"] and not any(hdr for hdr, _ in seen["readers"]),
+            f"{name}: the SDR video was not read as SDR: {seen['readers']}")
+    require(run["hit_frames"] == RECIPE_FRAMES, f"{name}: hits "
+            f"{run['hit_frames']} != the recipe's {RECIPE_FRAMES}")
+    require(not any(run["launches"].values()), f"{name}: tone-map launches "
+            f"{run['launches']} on an SDR source")
+    require(seen["ladder_frames"] > 0 and seen["probes"], f"{name}: the "
+            f"recovery ladder saw no frame or probed nothing")
+    ladder = run["engine"].backend
+    stages = run["engine"]._timer.summary()
+    rot = seen["probes"].get("rot", 0)
+    emit(phase=name, hits=len(run["rows"]), hit_frames=run["hit_frames"],
+         crops=len(run["rows"]), readers=seen["readers"],
+         launches=run["launches"], setup_seconds=run["setup_seconds"],
+         seconds=run["seconds"], source_frames_per_s=150 / run["seconds"],
+         prescan_spans=run["result"].spans,
+         recovered_faces=ladder.recovered_faces,
+         ladder_frames=seen["ladder_frames"],
+         ladder_empty_frames=seen["ladder_empty"], probes=seen["probes"],
+         rotation_probes_per_frame=rot / max(1, seen["ladder_frames"]),
+         stage_seconds=stage_split(stages), stages=stages)
+    return run
+
+
+def phase_sdr(work: str):
+    """18(a) the recipe's SDR drive and 18(b) its rotated twin."""
+    # the recipe's fixture as SKILL.md writes it: SDR, 320×240
+    fixture = make_fixture(os.path.join(work, "sdr"), size=(320, 240),
+                           pq=False)
+    rotated = (rotate_video(fixture[0], os.path.join(work, "sdr",
+                                                     "rot.mp4")),
+               *fixture[1:])
+    upright = recipe_run(work, "sdr_verify", fixture)
+    twin = recipe_run(work, "rotated", rotated)
+    return fixture, upright["launches"], twin["launches"]
+
+
+def preset_run(work: str, name: str, fixture) -> dict:
+    """One run of the bundled preset on a PQ fixture with its P010
+    source: hits and stills as :func:`check_stills`, the face backend's
+    main-pass batches 128 frames wide, each crop within 1 px of the ratio
+    it chose, ``dataset_out/`` by :func:`check_curation`."""
+    import numpy as np
+
+    composed, dispatches, persons, restores = [], [], {}, []
+
+    def hook(runtime, eng):
+        restores.append(_watch_defaults_run(runtime["inner_face"], composed,
+                                            dispatches, persons))
+
+    try:
+        run = run_cli(work, name, fixture, sets=(),
+                      flags=("--preset", PRESET), hook=hook)
+    finally:
+        for restore in restores:
+            restore()
+    cfg, rows = run["cfg"], run["rows"]
+    with open(PRESET) as fh:
+        preset = json.load(fh)
+    require(cfg.tpu_batch_frames == preset["tpu_batch_frames"] == 128
+            and cfg.ratio == ",".join(PRESET_RATIOS),
+            f"{name}: the preset did not set batch and ratios: "
+            f"{cfg.tpu_batch_frames}, {cfg.ratio}")
+    stages = run["engine"]._timer.summary()
+    batches = stages["main.submit"]["count"]
+    require(batches > 0 and len(dispatches) == batches
+            and set(dispatches) == {128}, f"{name}: main-pass batches "
+            f"{dispatches} for {batches} submits: not 128 frames wide")
+    by_ratio = {}
+    for r in rows:
+        w = int(r["x2"]) - int(r["x1"])
+        h = int(r["y2"]) - int(r["y1"])
+        rw, rh = (float(v) for v in r["ratio"].split(":"))
+        off = min(abs(w - h * rw / rh), abs(h - w * rh / rw))
+        require(r["ratio"] in PRESET_RATIOS and off <= 1.0,
+                f"{name}: crop {r['crop_path']} {w}x{h} is {off:.2f} px off "
+                f"its ratio {r['ratio']}")
+        by_ratio[r["ratio"]] = by_ratio.get(r["ratio"], 0) + 1
+    # a run that keeps a few crops may see the curator's gates drop them
+    # all: phase_preset requires a selection from the long shot
+    cur = check_curation(run["out"], min_selected=0)
+    main_s = sum(stages[k]["total_s"] for k in ("main.submit",
+                                                "main.device_fetch"))
+    emit(phase=name, preset=os.path.relpath(PRESET), hits=len(rows),
+         hit_frames=run["hit_frames"], stills=len(rows),
+         crops_per_ratio=by_ratio, main_batches=batches,
+         main_batch_frames=dispatches,
+         person_box_share_of_hit_frames=float(np.mean(
+             [persons.get(f, 0) > 0 for f in run["hit_frames"]])),
+         main_ms_per_batch=main_s / batches * 1e3, pool=cur["pool"],
+         selected=cur["selected"], selected_files=cur["selected_files"],
+         curator_wall_s=cur["wall_s"], launches=run["launches"],
+         setup_seconds=run["setup_seconds"], seconds=run["seconds"],
+         stage_seconds=stage_split(stages), stages=stages)
+    return dict(launches=run["launches"], out=run["out"], ratios=by_ratio,
+                selected=cur["selected"])
+
+
+def phase_preset(work: str, body_fixture, face_fixture):
+    """18(c): ``--preset presets/solidpreset_tpu.json`` (no ``--batch``:
+    the preset sets it) on phase 8's fixture, a person under a 48-px face;
+    on phase 4's, a 120-px face alone; and on a 10-s shot of phase 8's
+    kind with the person in view throughout (:data:`PRESET_LONG`). With
+    ``min_gap_sec`` 1.5 the first two keep the first hit of each span,
+    which the curator's gates drop in both packages (no face found in the
+    still, or face distance over 0.45, and sharpness under 0.10); the long
+    shot gives the curator stills from inside the span. The composer
+    frames the person in 1:1 or 2:3 and the close face in 3:4, so the runs
+    hold all three ratios."""
+    long_fixture = make_fixture(os.path.join(work, "preset_long"),
+                                draw_body=True, face_px=DEFAULT_FACE_PX,
+                                **PRESET_LONG)
+    runs = {name: preset_run(work, name, fx) for name, fx in
+            (("preset_person", body_fixture), ("preset_face", face_fixture),
+             ("preset_long", long_fixture))}
+    ratios = set().union(*(r["ratios"] for r in runs.values()))
+    require(ratios == set(PRESET_RATIOS), f"crops per ratio "
+            f"{ {n: r['ratios'] for n, r in runs.items()} }: not every ratio "
+            f"of {PRESET_RATIOS}")
+    require(runs["preset_long"]["selected"] >= 1, "the curator selected no "
+            "still of the long shot")
+    return (sum_launches(r["launches"] for r in runs.values()),
+            [r["out"] for r in runs.values()])
+
+
+# runs ``python -m <module> <args>`` (runpy, as ``-m`` does) and prints the
+# process's tone-map launches as a "child" JSON line when it exits
+# (0 where the process never imported the kernels' module)
+MODULE_CHILD = (
+    "import atexit, json, runpy, sys\n"
+    "def launches():\n"
+    "    H = sys.modules.get('person_capture_tpu_torch.kernels.hdr')\n"
+    "    return {'hdr_to_sdr_bgr': H.HDR_TO_SDR_LAUNCHES.count if H else 0,\n"
+    "            'tonemap_planes': H.TONEMAP_LAUNCHES.count if H else 0}\n"
+    "atexit.register(lambda: print(json.dumps({'child': True, 'launches': "
+    "launches()}), flush=True))\n"
+    "sys.argv = sys.argv[1:]\n"
+    "runpy.run_module(sys.argv[0], run_name='__main__', alter_sys=True)\n")
+
+
+def start_modules(logdir: str, specs, env=None):
+    """One process per ``(name, module, argv)`` of ``specs`` running the
+    module as ``python -m`` would (:data:`MODULE_CHILD`)."""
+    return start_processes(logdir, [
+        (name, ["-c", MODULE_CHILD, module, *argv])
+        for name, module, argv in specs], env)
+
+
+def sum_launches(counts) -> dict:
+    counts = list(counts)
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def phase_curator_cli(work: str, preset_outs, ref_path: str):
+    """18(d): ``python -m person_capture_tpu_torch.curator`` alone over
+    18(c)'s stills (all runs' in one pool), on the card (its default
+    device) and with ``--device cpu``, all at once: the same selection.
+    Twice on each device: as typed, with the reference CLI's
+    ``--sharp-min 0.10``, which drops every still of these fixtures (their
+    P010 planes are the analysis frame upscaled 4×, so their sharpness
+    reads about 0.02), and with ``--sharp-min 0``, the gate of the
+    engine's own curation, where the selection must not be empty."""
+    import shutil
+
+    pool = os.path.join(work, "curator_pool")
+    os.makedirs(pool)
+    for out in preset_outs:
+        tag = os.path.basename(out)
+        for f in os.listdir(os.path.join(out, "crops")):
+            if f.lower().endswith(IMAGE_EXTS):
+                shutil.copy(os.path.join(out, "crops", f),
+                            os.path.join(pool, f"{tag}_{f}"))
+    gates = {"typed": [], "engine_gate": ["--sharp-min", "0"]}
+    devices = {"cuda": [], "cpu": ["--device", "cpu"]}
+    outs = {(g, d): os.path.join(work, f"curator_cli_{g}_{d}")
+            for g in gates for d in devices}
+    t0 = time.perf_counter()
+    done = finish_processes(start_modules(os.path.join(work, "logs"), [
+        (f"curator_{g}_{d}", "person_capture_tpu_torch.curator",
+         ["--pool", pool, "--ref", ref_path, "--out", out, *gates[g],
+          *devices[d]]) for (g, d), out in outs.items()]))
+    seconds = time.perf_counter() - t0
+    picked, metrics = {}, {}
+    for (g, d), out in outs.items():
+        files = sorted(os.listdir(out))
+        require("metrics.json" in files and "selection_debug.csv" in files,
+                f"curator CLI ({g}, {d}): {files}")
+        picked[g, d] = [f for f in files if f.lower().endswith(IMAGE_EXTS)]
+        with open(os.path.join(out, "metrics.json")) as fh:
+            metrics[g, d] = json.load(fh)
+    for g in gates:
+        require(picked[g, "cuda"] == picked[g, "cpu"], f"curator CLI ({g}) "
+                f"on the card selected {picked[g, 'cuda']}, on the CPU "
+                f"{picked[g, 'cpu']}")
+    require(picked["engine_gate", "cuda"], "the curator CLI selected "
+            "nothing at the engine's gate")
+    launches = sum_launches(c["launches"] for c, _ in done.values())
+    emit(phase="curator_cli", pool=len(os.listdir(pool)),
+         selected={g: picked[g, "cuda"] for g in gates},
+         card_wall_s={g: metrics[g, "cuda"]["wall_s"] for g in gates},
+         cpu_wall_s={g: metrics[g, "cpu"]["wall_s"] for g in gates},
+         launches=launches, seconds=seconds)
+    return launches
+
+
+def watch_clip_face(seen: dict, runtime, eng):
+    """Spies for 18(e) on the primary face backend: every chip its fused
+    chain aligns and every chip its CLIP tower embeds (the first 16 with a
+    face kept), each frame's faces after the ladder, and the bank."""
+    import threading
+
+    from person_capture_tpu_torch.ops import align as AL
+
+    face = runtime["inner_face"]
+    inside = threading.local()
+    seen.update(aligned=0, embedded=0, tower_calls=0, chips=[], faces={},
+                face=face)
+    fused, encode, align = face._fused_bgr, face._encode, AL.align_chips
+    submit, seed = eng.backend.submit_batch, eng.seed_bank
+
+    def fused_bgr(frames):
+        inside.on = True
+        try:
+            return fused(frames)
+        finally:
+            inside.on = False
+
+    def encoded(chips):
+        if getattr(inside, "on", False):
+            seen["tower_calls"] += 1
+            seen["embedded"] += int(chips.shape[0])
+        return encode(chips)
+
+    def aligned(frames, kps, valid, *a, **kw):
+        chips = align(frames, kps, valid, *a, **kw)
+        if getattr(inside, "on", False):
+            seen["aligned"] += int(chips.shape[0] * chips.shape[1])
+            keep = chips[valid.bool()][:16 - len(seen["chips"])]
+            seen["chips"] += [c.float().clone() for c in keep]
+        return chips
+
+    def recorded(frames, valid, frame_idxs=None):
+        fetch = submit(frames, valid, frame_idxs)
+
+        def fetched():
+            out = fetch()
+            for slot, idx in enumerate(frame_idxs if frame_idxs is not None
+                                       else ()):
+                if valid[slot]:
+                    m = out["mask"][slot]
+                    seen["faces"][int(idx)] = out["feats"][slot][m].copy()
+            return out
+
+        return fetched
+
+    def seeded(paths):
+        seen["bank"] = seed(paths)
+        return seen["bank"]
+
+    face._fused_bgr, face._encode = fused_bgr, encoded
+    AL.align_chips = aligned
+    eng.backend.submit_batch, eng.seed_bank = recorded, seeded
+
+    def restore():
+        del face._fused_bgr
+        face._encode = encode
+        AL.align_chips = align
+
+    return restore
+
+
+def frame_face_distance(seen: dict, frame: int):
+    """The least face distance of ``frame``'s faces to the run's bank, as
+    the main pass computes it; None where the frame had no face."""
+    import numpy as np
+
+    feats = seen["faces"].get(frame)
+    bank = seen["bank"].matrix()
+    if feats is None or not len(feats) or bank is None:
+        return None
+    v = feats / np.maximum(np.linalg.norm(feats, axis=1, keepdims=True),
+                           1e-6)
+    return float(1.0 - (v @ bank.T).max())
+
+
+def phase_clip_face(work: str, sdr_fixture):
+    """18(e): phase 4's settings with ``use_arcface=false`` (ViT-L-14 at
+    the port's seeded random init) on 18(a)'s SDR fixture, bf16 and
+    ``--compute-dtype float32`` (TF32 off)."""
+    import torch
+
+    from person_capture_tpu_torch.models import clip_vit as CV
+
+    sets = SLICE_SETS + ("use_arcface=false",)
+    runs, seen = {}, {}
+    for dtype in ("bfloat16", "float32"):
+        seen[dtype], restores = {}, []
+
+        def hook(runtime, eng, s=seen[dtype]):
+            face = runtime["inner_face"]
+            require(face.arcface_model is None
+                    and face.clip_model.cfg is CV.VIT_L_14,
+                    "use_arcface=false did not build the ViT-L-14 face "
+                    "tower")
+            restores.append(watch_clip_face(s, runtime, eng))
+
+        try:
+            with sdr_source(), _no_tf32():
+                runs[dtype] = run_cli(work, f"clip_face_{dtype}",
+                                      sdr_fixture, sets,
+                                      flags=("--compute-dtype", dtype),
+                                      hook=hook, hdr=False)
+        finally:
+            for restore in restores:
+                restore()
+        s = seen[dtype]
+        require(s["tower_calls"] >= 1 and s["embedded"] == s["aligned"],
+                f"{dtype}: the CLIP tower embedded {s['embedded']} of "
+                f"{s['aligned']} aligned chips in {s['tower_calls']} calls")
+    bf16, fp32 = (seen[d]["face"] for d in ("bfloat16", "float32"))
+    require(bf16.dtype == torch.bfloat16 and fp32.dtype == torch.float32,
+            "the CLIP-face runs did not run in bf16 and fp32")
+    chips = seen["bfloat16"]["chips"]
+    require(len(chips) == 16, f"{len(chips)} face chips from the run")
+    chips = torch.stack(chips)
+    with _no_tf32():
+        cos = (CV.encode_images(bf16.clip_model, chips)
+               * CV.encode_images(fp32.clip_model, chips)).sum(-1)
+    require(float(cos.min()) >= 0.99, f"ViT-L-14 face chips bf16 vs fp32: "
+            f"cosine {float(cos.min()):.5f} < 0.99")
+    thresh = float(runs["float32"]["cfg"].face_thresh)
+    frames = {d: runs[d]["hit_frames"] for d in runs}
+    near, parted = {}, []
+    for f in sorted(set(frames["bfloat16"]) ^ set(frames["float32"])):
+        fd = frame_face_distance(seen["float32"], f)
+        if fd is not None and abs(fd - thresh) <= NEAR_THRESHOLD:
+            near[f] = fd
+        else:
+            parted.append((f, fd))
+    require(not parted, f"bf16 and fp32 CLIP-face runs part on frames "
+            f"(frame, fp32 face distance) {parted}, threshold {thresh}")
+    emit(phase="clip_face", hit_frames=frames,
+         near_threshold_frames=near, face_thresh=thresh,
+         chips_aligned={d: seen[d]["aligned"] for d in seen},
+         chips_embedded={d: seen[d]["embedded"] for d in seen},
+         tower_calls={d: seen[d]["tower_calls"] for d in seen},
+         bf16_vs_fp32_cosine=[float(c) for c in cos],
+         launches={d: runs[d]["launches"] for d in runs},
+         seconds={d: runs[d]["seconds"] for d in runs},
+         stage_seconds={d: stage_split(runs[d]["engine"]._timer.summary())
+                        for d in runs})
+    return sum_launches(runs[d]["launches"] for d in runs)
+
+
+def phase_reid_pt(work: str, body_fixture, reid: dict):
+    """18(f): ReID towers from open_clip ``.pt`` state dicts: the bundled
+    clip_reid_s through ``--reid-weights`` on phase 9's run, and a ViT-B-32
+    tower at a seeded init, tower against tower."""
+    import numpy as np
+    import torch
+
+    from person_capture_tpu_torch import main as M
+    from person_capture_tpu_torch.models import clip_vit as CV
+    from person_capture_tpu_torch.models.bridge import flax_variables
+    from person_capture_tpu_torch.models.loaders import torch_state_dict
+    from person_capture_tpu_torch.models.zoo import resolve_weights
+    from person_capture_tpu_torch.pipeline.backends import ClipReidBackend
+
+    def save(variables, cfg, path):
+        torch.save({k: torch.from_numpy(v) for k, v in torch_state_dict(
+            "clip", variables, cfg).items()}, path)
+        return path
+
+    reid_s = save(resolve_weights("auto", "clip_reid_s"), CV.REID_S,
+                  os.path.join(work, "clip_reid_s.pt"))
+    calls = []
+
+    def hook(runtime, eng):
+        tower = runtime["reid"]
+        require(isinstance(tower, ClipReidBackend)
+                and tower.model.cfg is CV.REID_S, "--reid-weights x.pt did "
+                "not build the clip_reid_s tower")
+        extract = tower.extract
+        tower.extract = lambda crops: calls.append(len(crops)) or extract(
+            crops)
+
+    run = run_cli(work, "reid_pt", body_fixture, sets=(), hook=hook,
+                  flags=("--match-mode", "either", "--set",
+                         "reid_backbone=clip_reid_s", "--reid-weights",
+                         reid_s))
+    require(calls, "the .pt ReID tower was never called")
+    require(run["hit_frames"] == reid["hit_frames"], f"the .pt clip_reid_s "
+            f"run's hits {run['hit_frames']} != phase 9's "
+            f"{reid['hit_frames']}")
+
+    crops = reid["crops"]
+    seeded = ClipReidBackend(cfg=CV.VIT_B_32, dtype=torch.float32,
+                             seed=VIT_B_32_SEED, device="cuda")
+    path = save(flax_variables(seeded.model), CV.VIT_B_32,
+                os.path.join(work, "vit_b_32.pt"))
+    cfg, weights = M.resolve_reid("ViT-B-32", path)
+    require(cfg is CV.VIT_B_32, f"resolve_reid gave {cfg.name}")
+    loaded = ClipReidBackend(cfg=cfg, weights=weights, dtype=torch.float32,
+                             device="cuda")
+    half = ClipReidBackend(cfg=cfg, weights=weights, device="cuda")
+    with _no_tf32():
+        want = seeded.extract(crops)
+        got = loaded.extract(crops)
+        cos = (half.extract(crops) * got).sum(-1)
+    gap = float(np.abs(got - want).max())
+    require(gap <= 1e-5, f"ViT-B-32 from .pt vs its seeded tower: {gap}")
+    require(float(cos.min()) >= 0.99, f"ViT-B-32 bf16 vs fp32: cosine "
+            f"{float(cos.min()):.5f} < 0.99")
+    x = torch.from_numpy(np.stack([loaded._preprocess(c) for c in crops])
+                         .astype(np.float32)).cuda()
+    times = in_turns({
+        "vit_b_32_ms": lambda: CV.encode_images(half.model, x),
+        "vit_b_32_fp32_ms": lambda: CV.encode_images(loaded.model, x)},
+        timer=lambda fn: cuda_ms(fn, reps=5, inner=3, warmup=2))
+    flops = vit_flops(CV.VIT_B_32, len(crops))
+    emit(phase="reid_pt", hit_frames=run["hit_frames"],
+         reid_pt_calls=len(calls), launches=run["launches"],
+         seconds=run["seconds"], vit_b_32_pt_vs_seeded_max_abs=gap,
+         vit_b_32_bf16_vs_fp32_cosine=[float(c) for c in cos],
+         batch=len(crops), batch_ms=times, gflop_per_batch=flops / 1e9,
+         bf16_bound_ms=flops / BF16_OPS_PER_S * 1e3)
+    return run["launches"]
+
+
+def _index_rows(out: str) -> list:
+    import csv
+
+    with open(os.path.join(out, "index.csv")) as fh:
+        return [[r[k] for k in INDEX_DECISIONS] for r in csv.DictReader(fh)]
+
+
+def watch_corpus_names(corpus: str) -> list:
+    """Four video names for 18(g) such that each shard owns one of the
+    first two and one of the last two under ``shard_select(stable=True)``
+    (a hash of the absolute path)."""
+    from person_capture_tpu_torch.sweep import shard_select
+
+    def owner(name):
+        path = os.path.join(corpus, name)
+        return 0 if shard_select([path], 0, 2, stable=True) else 1
+
+    free = (f"w{k:02d}.mp4" for k in range(100))
+    names = []
+    for _ in range(2):
+        want = {0: None, 1: None}
+        while None in want.values():
+            name = next(free)
+            if want[owner(name)] is None:
+                want[owner(name)] = name
+        names += [want[0], want[1]]
+    return names
+
+
+def _wait_for_lines(started, text: str, timeout_s: float = 120.0) -> None:
+    """Until every process's log holds ``text``; a process that exits
+    first, or the time limit, fails the phase."""
+    deadline = time.monotonic() + timeout_s
+    waiting = list(started)
+    while waiting:
+        for item in list(waiting):
+            name, p, log = item
+            with open(log) as fh:
+                if text in fh.read():
+                    waiting.remove(item)
+                    continue
+            require(p.poll() is None, f"{name} exited {p.returncode} before "
+                    f"printing {text!r}")
+        require(time.monotonic() < deadline, f"no {text!r} from "
+                f"{[n for n, _, _ in waiting]} in {timeout_s:.0f} s")
+        time.sleep(0.1)
+
+
+def phase_watch(work: str, ref_path: str):
+    """18(g): two ``sweep --watch --shard i/2`` processes sharing the card
+    over an SDR corpus that grows while they run, each video against a
+    one-process sweep of the whole corpus; the doctor on each heartbeat."""
+    from person_capture_tpu_torch import sweep
+    from person_capture_tpu_torch.video.synthetic import generate_video
+
+    root = os.path.join(work, "watch")
+    corpus, staging = (os.path.join(root, d) for d in ("corpus", "staging"))
+    os.makedirs(corpus)
+    os.makedirs(staging)
+    names = watch_corpus_names(corpus)
+    truths = {}
+    for name, (seed, segments) in zip(names, WATCH_VIDEOS):
+        sv = generate_video(os.path.join(staging, name), width=320,
+                            height=240, fps=30, total_frames=WATCH_FRAMES,
+                            segments=segments, moving=True, seed=seed)
+        truths[name] = sv.identity_spans(0)
+    for name in names[:2]:
+        os.replace(os.path.join(staging, name), os.path.join(corpus, name))
+    env = {k: v for k, v in os.environ.items()
+           if k != "PERSON_CAPTURE_FORCE_HDR"}
+    env["PERSON_CAPTURE_SHARE_CARDS"] = "1"
+    outs = [os.path.join(root, f"shard{i}") for i in range(2)]
+    t0 = time.perf_counter()
+    started = start_modules(os.path.join(root, "logs"), [
+        (f"watch{i}", "person_capture_tpu_torch.sweep",
+         ["--videos", corpus, "--ref", ref_path, "--out", outs[i],
+          "--watch", str(WATCH_POLL_S), "--watch-max-idle",
+          str(WATCH_MAX_IDLE), "--shard", f"{i}/2", *WATCH_FLAGS])
+        for i in range(2)], env=env)
+    try:
+        _wait_for_lines(started, "[sweep] corpus")
+        for name in names[2:]:
+            os.replace(os.path.join(staging, name),
+                       os.path.join(corpus, name))
+    except BaseException:
+        finish_processes(started, timeout_s=1)
+        raise
+    done = finish_processes(started)
+    watch_s = time.perf_counter() - t0
+
+    paths = [os.path.join(corpus, n) for n in names]
+    ran = {}
+    for i, out in enumerate(outs):
+        with open(os.path.join(out, "sweep_summary.json")) as fh:
+            summary = json.load(fh)
+        got = sorted(os.path.basename(r["video"]) for r in summary["results"]
+                     if r["ok"])
+        want = sorted(os.path.basename(p) for p in
+                      sweep.shard_select(paths, i, 2, stable=True))
+        require(got == want and summary["failed"] == 0,
+                f"shard {i}/2 ran {got} (failed {summary['failed']}), "
+                f"shard_select gives {want}")
+        with open(os.path.join(out, "sweep_status.json")) as fh:
+            phase = json.load(fh)["phase"]
+        require(phase == "exited", f"shard {i}/2 heartbeat ends {phase!r}")
+        ran.update({n: i for n in got})
+    require(sorted(ran) == sorted(names), f"videos run {sorted(ran)} of "
+            f"{names}")
+
+    plain = os.path.join(root, "plain")
+    reset_launches()
+    t0 = time.perf_counter()
+    with sdr_source():
+        rc = sweep.main(["--videos", corpus, "--ref", ref_path, "--out",
+                         plain, *WATCH_FLAGS])
+    plain_s = time.perf_counter() - t0
+    plain_launches = read_launches()
+    require(rc == 0, f"the one-process sweep exited {rc}")
+    hits = {}
+    for name, shard in ran.items():
+        stem = os.path.splitext(name)[0]
+        got = _index_rows(os.path.join(outs[shard], stem))
+        want = _index_rows(os.path.join(plain, stem))
+        require(got == want, f"{name}: shard {shard}'s index.csv {got} != "
+                f"the one-process sweep's {want}")
+        hits[name] = [int(r[0]) for r in got]
+        truth = truths[name]
+        require(hits[name] and all(any(s <= f <= e for s, e in truth)
+                                   for f in hits[name]),
+                f"{name}: hits {hits[name]} outside the truth {truth}")
+
+    cache = os.path.join(root, "cache")
+    docs = start_modules(os.path.join(root, "logs"), [
+        (f"doctor{i}", "person_capture_tpu_torch.doctor",
+         ["--json", "--skip-device", "--cache-dir", cache, "--sweep-root",
+          out] + (["--skip-decode"] if i else []))
+        for i, out in enumerate(outs)])
+    reports = []
+    for name, (_, text) in finish_processes(docs).items():
+        report = json.loads([ln for ln in text.splitlines()
+                             if ln.startswith("{") and '"host"' in ln][-1])
+        heartbeat = report.get("sweep", {})
+        require(report["ok"] and heartbeat.get("found")
+                and heartbeat.get("phase") == "exited",
+                f"{name}: sweep heartbeat {heartbeat}")
+        reports.append(report)
+    decode = reports[0].get("decode", {})
+    require(decode.get("decode_fps", 0) > 0, f"doctor decode: {decode}")
+    launches = sum_launches([c["launches"] for c, _ in done.values()]
+                            + [plain_launches])
+    emit(phase="watch", videos=names, first=names[:2], dropped=names[2:],
+         shard_of=ran, hits=hits, truth_spans=truths,
+         watch_seconds=watch_s, plain_sweep_seconds=plain_s,
+         heartbeats=[r["sweep"] for r in reports], doctor_decode=decode,
+         launches=launches)
+    return launches
+
+
+def phase_user_paths(work: str, face_fixture, body_fixture,
+                     reid: dict) -> dict:
+    """Phase 18: (a)-(g), each sub-phase's tone-map launches."""
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(work, *a)
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    launches = {}
+    sdr, launches["sdr_verify"], launches["rotated"] = timed(
+        "sdr_and_rotated", phase_sdr)
+    launches["preset"], preset_outs = timed("preset", phase_preset,
+                                            body_fixture, face_fixture)
+    launches["curator_cli"] = timed("curator_cli", phase_curator_cli,
+                                    preset_outs, body_fixture[1])
+    launches["clip_face"] = timed("clip_face", phase_clip_face, sdr)
+    launches["reid_pt"] = timed("reid_pt", phase_reid_pt, body_fixture, reid)
+    launches["watch"] = timed("watch", phase_watch, sdr[1])
+    emit(phase="user_paths", seconds=seconds,
+         total_seconds=sum(seconds.values()), launches=launches)
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -2312,8 +3135,8 @@ def main() -> int:
         planar_err, still = phase_main_path_shape(rows)
         defaults_launches, body_fixture = phase_defaults(work)
         curate_launches, curate_hits = phase_curate(work, body_fixture)
-        later = {"curate": curate_launches,
-                 "reid": phase_reid(work, body_fixture),
+        reid = phase_reid(work, body_fixture)
+        later = {"curate": curate_launches, "reid": reid["launches"],
                  "yolo_face": phase_yolo_face(work, fixture[:3]),
                  "diag": phase_diag(work, fixture[:3]),
                  "onnx": phase_onnx(work, fixture),
@@ -2323,6 +3146,8 @@ def main() -> int:
         later["mesh"], mesh_processes = phase_mesh(work, fixture,
                                                    phase4_frames)
         later["sharded"] = phase_sharded(work, fixture)
+        later.update(phase_user_paths(work, fixture[:3], body_fixture,
+                                      reid))
     source = "person_capture_tpu_torch/csrc/tonemap.cu"
     replaces = "person_capture_tpu/kernels/hdr.py:217"
 
