@@ -27,6 +27,7 @@ import numpy as np
 from ..config import SessionConfig
 from ..core.bank import FD_NONE, RefBank, fd_min
 from ..core.spans import Fd9SkipGate, SpanBuilder, SpanBuilderConfig
+from ..video.reader import position_reader
 
 
 @dataclass
@@ -344,8 +345,10 @@ def refine_span_edges(spans, reopen_reader, backend, cfg: SessionConfig,
 
     The rescan batches all edge-window samples of a span through one device
     call instead of the reference's per-frame loop. ``timer`` names the
-    decoder's opening and seeks (``prescan.refine_decode``) and the padded
-    device batches (``prescan.refine_fetch``).
+    decoder's opening and positioning (``prescan.refine_decode``) and the
+    padded device batches (``prescan.refine_fetch``), and counts the
+    seeks (``prescan.refine_seeks``) and the frames drained between
+    samples (``prescan.refine_drained``).
     """
     from ..utils.timing import NULL_TIMER
 
@@ -365,8 +368,8 @@ def refine_span_edges(spans, reopen_reader, backend, cfg: SessionConfig,
     enter = float(cfg.prescan_fd_enter)
     out = []
     # ONE decoder for every edge window (edges are visited in ascending
-    # order and _sample_fds seeks per sample): a reopen per edge spawned
-    # two processes per span, whose open/seek/preroll overhead can
+    # order and _sample_fds walks each window forward): a reopen per edge
+    # spawned two processes per span, whose open/seek/preroll overhead can
     # dominate the refine budget on short windows
     with timer("prescan.refine_decode"):
         reader = reopen_reader()
@@ -423,17 +426,27 @@ def refine_span_edges(spans, reopen_reader, backend, cfg: SessionConfig,
 
 def _sample_fds(reader, backend, cfg: SessionConfig, bank: RefBank, idxs,
                 timer):
-    """Decode specific frames and return each sample's best fd (batched)."""
+    """Decode specific frames and return each sample's best fd (batched).
+
+    The reader walks forward through the window: a short forward hop to
+    the next sample drains (``skip``, no colour conversion or resize), a
+    long or backward jump seeks (``video/reader.position_reader``), so a
+    window costs at most one seek (a cv2 seek decodes again from a
+    keyframe before its target). After a short skip or a failed read the
+    reader's position is not trusted, and the sample is reached by a seek.
+    """
     frames = []
     got = []
+    lost = False
     with timer("prescan.refine_decode"):
         for i in idxs:
-            if hasattr(reader, "seek"):
-                reader.seek(i)
-            else:
-                reader.skip(max(0, i - reader.pos))
+            if not position_reader(reader, i, timer, "prescan.refine",
+                                   drain=not lost):
+                position_reader(reader, i, timer, "prescan.refine",
+                                drain=False)
             f = reader.read()
-            if f is None:
+            lost = f is None
+            if lost:
                 continue
             frames.append(_cap_width(f, cfg.prescan_max_width))
             got.append(i)

@@ -44,6 +44,8 @@ import os
 import threading
 from typing import Callable, List, Optional, Sequence, Tuple
 
+from .reader import position_reader
+
 
 def auto_decode_workers() -> int:
     """Default decode-worker count: leave one core for the driver loop,
@@ -105,22 +107,6 @@ def _cut_blocks(segs: List[Tuple[int, int, int]], block_samples: int
             out.append((first + off * st, take, st))
             off += take
     return out
-
-
-def _position_reader(reader, target: int) -> bool:
-    """Land ``reader`` exactly on ``target``. Small forward gaps drain
-    with skip; larger jumps seek (or reopen is the caller's job for
-    seekless readers — the factory readers here all seek). Returns False
-    on an EOF shortfall."""
-    delta = int(target) - int(reader.pos)
-    if delta == 0:
-        return True
-    if 0 < delta <= 96 or (delta > 0 and not hasattr(reader, "seek")):
-        return reader.skip(delta) == delta
-    if hasattr(reader, "seek"):
-        reader.seek(int(target))
-        return True
-    return False
 
 
 class StripedDecodeReader:
@@ -347,7 +333,7 @@ class StripedDecodeReader:
                     return
                 first, count, stride = gen.blocks[i]
                 items: List = []
-                if not _position_reader(reader, first):
+                if not position_reader(reader, first):
                     items.append(("eof", reader.pos))
                     self._deposit(gen, i, items)
                     return

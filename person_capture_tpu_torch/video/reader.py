@@ -89,6 +89,43 @@ class VideoMeta:
     is_hdr: bool = False
 
 
+#: forward gaps up to this many frames drain the decoder (``skip``) rather
+#: than seek: a cv2 frame seek decodes again from a keyframe before its
+#: target, and an ffmpeg pipe's seek respawns the process
+FORWARD_DRAIN_MAX = 96
+
+
+def position_reader(reader, target: int, timer=None, counter: str = "",
+                    drain: bool = True) -> bool:
+    """Land ``reader`` exactly on ``target``.
+
+    A forward gap of at most ``FORWARD_DRAIN_MAX`` frames drains with
+    ``skip`` (a seekless reader drains any forward gap); any other jump
+    seeks, and so does every jump with ``drain=False`` (after a shortfall
+    the reader's ``pos`` is not to be trusted). Returns False on a
+    shortfall: a short skip, or a backward jump a seekless reader cannot
+    make. With ``timer`` (a ``StepTimer``), counts ``<counter>_seeks`` and
+    ``<counter>_drained`` (frames skipped) on it.
+    """
+    target = int(target)
+    delta = target - int(reader.pos)
+    seekable = hasattr(reader, "seek")
+    if drain or not seekable:
+        if delta == 0:
+            return True
+        if 0 < delta <= FORWARD_DRAIN_MAX or (delta > 0 and not seekable):
+            done = reader.skip(delta)
+            if timer is not None:
+                timer.count(counter + "_drained", done)
+            return done == delta
+    if not seekable:
+        return False
+    reader.seek(target)
+    if timer is not None:
+        timer.count(counter + "_seeks", 1)
+    return True
+
+
 class Cv2Reader:
     """cv2.VideoCapture wrapper with grab/retrieve/seek and optional
     retrieve-time downscale to ``max_w``."""
@@ -507,7 +544,7 @@ class FfmpegPipeReader:
     #: respawning the decoder (a respawn costs a process spawn + container
     #: seek + preroll decode; the fd9 gate and prefetch resyncs produce
     #: many small forward hops)
-    FORWARD_DRAIN_MAX = 96
+    FORWARD_DRAIN_MAX = FORWARD_DRAIN_MAX
 
     def seek(self, frame_idx: int) -> None:
         """Random access: small forward gaps drain the existing pipe;
