@@ -181,3 +181,12 @@ def summed_stages(summaries) -> Dict[str, float]:
         for k, v in s.items():
             out[k] += float(v["total_s"])
     return dict(out)
+
+
+def summed_counters(counters) -> Dict[str, int]:
+    """StepTimer counters of several runs → their sums."""
+    out: Dict[str, int] = defaultdict(int)
+    for c in counters:
+        for k, v in c.items():
+            out[k] += int(v)
+    return dict(out)

@@ -3,8 +3,10 @@
 What the port's combined step computes for one batch of analysis frames,
 written as separate plain steps on frozen copies of the models: the host's
 I420 wire (``cv2.COLOR_BGR2YUV_I420``) and its BT.601 conversion back,
-letterbox, SCRFD, NMS into slots, the 5-point chip warp, the embedder
-(IResNet ArcFace or a CLIP ViT tower), and YOLOv8 persons. It also builds
+letterbox, the face detector (SCRFD) with its NMS into slots, the 5-point
+chip warp, the embedder (IResNet ArcFace or a CLIP ViT tower), and the
+person detector (YOLOv8). Each model comes from the family its
+configuration section names (``port_bench/families/``). It also builds
 the bank of the reference photo (the photo and its mirror) as the engine
 seeds it. TF32 is off while it runs.
 
@@ -24,13 +26,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from . import arcface as AF
-from . import clip_vit as CV
-from . import scrfd as SD
-from . import yolov8 as YV
+from ..families import ROLES, family_of
 from .align import align_chips
 from .preprocess import letterbox_topleft
-from .weights import load_arcface, load_clip, load_scrfd, load_yolov8
 
 FP8_MAX = 448.0
 
@@ -119,32 +117,20 @@ class Reference:
         self.person_size = int(per["det_size"])
         self.person_conf = float(per["conf"])
         self.person_max = int(per["max_det"])
-        self.embed_kind = emb["kind"]
         self.dedup_cos = float(emb["bank_dedup_cos"])
-        scrfd = SD.SCRFD(SD.SCRFDConfig(**_arch(det["arch"])))
-        load_scrfd(scrfd, weights["detector"])
-        if self.embed_kind == "arcface":
-            embedder = AF.IResNet(AF.ArcFaceConfig(**_arch(emb["arch"])))
-            load_arcface(embedder, weights["embedder"])
-        else:
-            embedder = CV.ClipViT(CV.ClipVitConfig(**_arch(emb["arch"])))
-            load_clip(embedder, weights["embedder"])
-        yolo = YV.YoloV8(YV.YoloConfig(**_arch(per["arch"])))
-        load_yolov8(yolo, weights["person"])
+        families = [family_of(cfg[role], role) for role in ROLES]
         self.models = []
-        for m in (scrfd, embedder, yolo):
+        for role, fam in zip(ROLES, families):
+            m = fam.reference(cfg[role]["arch"])
+            fam.load_reference(m, weights[role])
             m = m.eval().to(self.device, torch.float32)
             if precision == "fp8":
                 lower_to_fp8(m)
             elif precision != "fp32":
                 raise ValueError(f"unknown precision {precision!r}")
             self.models.append(m)
-        self.scrfd, self.embedder, self.yolo = self.models
-
-    def _embed(self, chips: torch.Tensor) -> torch.Tensor:
-        if self.embed_kind == "arcface":
-            return AF.encode_chips(self.embedder, chips, flip_tta=False)
-        return CV.encode_images(self.embedder, chips)
+        self.detector, self.embedder, self.person = self.models
+        self._det, self._emb, self._per = families
 
     @torch.no_grad()
     def _wire(self, part: np.ndarray) -> torch.Tensor:
@@ -164,15 +150,17 @@ class Reference:
                 padded, scale = letterbox_topleft(bgr, self.det_size)
                 scales = torch.full((bgr.shape[0],), scale,
                                     dtype=torch.float32, device=self.device)
-                det = SD.detect_faces(self.scrfd, padded, scales,
-                                      self.score_thresh, self.max_faces)
+                det = self._det.detect_faces(self.detector, padded, scales,
+                                             self.score_thresh,
+                                             self.max_faces)
                 mask = det["mask"]
                 chips = align_chips(bgr, det["kps"], mask)
-                feats = torch.zeros((*mask.shape, self._dim()),
+                feats = torch.zeros((*mask.shape,
+                                     self._emb.dim(self.embedder)),
                                     device=self.device)
                 if mask.any():
-                    kept = chips[mask]
-                    feats[mask] = self._embed(kept)
+                    feats[mask] = self._emb.encode(self.embedder,
+                                                   chips[mask])
                 quality = torch.where(mask, chip_quality(chips),
                                       torch.zeros((), device=self.device))
                 outs.append({**{k: v.float().cpu().numpy()
@@ -181,10 +169,6 @@ class Reference:
                              "feats": feats.cpu().numpy(),
                              "quality": quality.cpu().numpy()})
         return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
-
-    def _dim(self) -> int:
-        cfg = self.embedder.cfg
-        return int(cfg.embed_dim)
 
     @torch.no_grad()
     def persons(self, frames: np.ndarray) -> Dict:
@@ -196,9 +180,9 @@ class Reference:
                 padded, scale = letterbox_topleft(bgr, self.person_size)
                 scales = torch.full((bgr.shape[0],), scale,
                                     dtype=torch.float32, device=self.device)
-                det = YV.detect_persons(self.yolo, padded, scales,
-                                        self.person_conf, self.person_max,
-                                        clip_hw=tuple(bgr.shape[1:3]))
+                det = self._per.detect_persons(
+                    self.person, padded, scales, self.person_conf,
+                    self.person_max, clip_hw=tuple(bgr.shape[1:3]))
                 outs.append({k: v.float().cpu().numpy() if k != "mask"
                              else v.cpu().numpy() for k, v in det.items()})
         return {k: np.concatenate([o[k] for o in outs]) for k in outs[0]}
@@ -238,7 +222,3 @@ class Reference:
                 rows.append(v)
         return np.stack(rows) if rows else None
 
-
-def _arch(d: Dict) -> Dict:
-    """JSON lists → the tuples the frozen config dataclasses hold."""
-    return {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}

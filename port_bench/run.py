@@ -6,7 +6,8 @@
 from the root of a checkout. The cell (``BENCHMARK.json``'s ``workloads``)
 names a configuration (``port_bench/configs/<name>.json``) and a traffic
 mix (``port_bench/traffic/<name>.json``); per-layer metrics are readers in
-``port_bench/metrics/<name>.py``.
+``port_bench/metrics/<name>.py``, and each model of a configuration comes
+from the family its section names (``port_bench/families/<kind>.py``).
 
 Set-up (``setup_s``): the cell's clip and a shorter warm-up clip of the
 same kind from ``--seed`` under ``TMPDIR``, the port's runtime built once
@@ -44,6 +45,8 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List
 
 import numpy as np
+
+from .families import ROLES, config_args, family_of
 
 PKG = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(PKG)
@@ -113,18 +116,22 @@ class Bench:
 
 def load_weights(conf: Dict, device) -> Dict:
     """The weights of each role as flax variable trees, the same the port
-    and the reference are given."""
-    from .clipweights import clip_variables
+    and the reference are given: a bundled ``.npz``, or a tree that the
+    role's family draws from a seed."""
     from .reference.weights import load_npz
 
     out = {}
-    for role in ("detector", "embedder", "person"):
+    for role in ROLES:
         spec = conf[role]["weights"]
-        kind, _, arg = spec.partition(":")
-        if kind == "bundled":
+        source, _, arg = spec.partition(":")
+        if source == "bundled":
             out[role] = load_npz(os.path.join(WEIGHTS_DIR, arg))
-        elif kind == "seeded":
-            out[role] = clip_variables(conf[role]["arch"], int(arg), device)
+        elif source == "seeded":
+            fam = family_of(conf[role], role)
+            if not hasattr(fam, "seeded"):
+                raise ValueError(f"{role} weights {spec!r}: the family "
+                                 f"{fam.__name__} draws no seeded weights")
+            out[role] = fam.seeded(conf[role]["arch"], int(arg), device)
         else:
             raise ValueError(f"{role} weights {spec!r}: bundled:<file> or "
                              f"seeded:<seed>")
@@ -136,19 +143,13 @@ def _agree(conf: Dict, cfg, runtime) -> None:
     settings, or the run stops."""
     face, person = runtime["inner_face"], runtime["person"]
     det, emb, per = conf["detector"], conf["embedder"], conf["person"]
-    embedder = face.arcface_model if emb["kind"] == "arcface" \
-        else face.clip_model
-    tuples = lambda d: {k: tuple(v) if isinstance(v, list) else v
-                        for k, v in d.items()}
-    pairs = {
-        "detector arch": (dataclasses.asdict(face.scrfd_model.cfg),
-                          tuples(det["arch"])),
-        "embedder arch": (None if embedder is None else
-                          dataclasses.asdict(embedder.cfg),
-                          tuples(emb["arch"])),
-        "person arch": (None if person is None else
-                        dataclasses.asdict(person.model.cfg),
-                        tuples(per["arch"])),
+    pairs = {}
+    for role in ROLES:
+        model = family_of(conf[role], role).port_model(runtime)
+        pairs[f"{role} arch"] = (
+            None if model is None else dataclasses.asdict(model.cfg),
+            config_args(conf[role]["arch"]))
+    pairs.update({
         "det_size": (face.det_size, det["det_size"]),
         "score_thresh": (face.score_thresh, det["score_thresh"]),
         "max_faces": (face.max_faces, det["max_faces"]),
@@ -163,7 +164,7 @@ def _agree(conf: Dict, cfg, runtime) -> None:
         "person conf": (getattr(person, "conf", None), per["conf"]),
         "person max_det": (getattr(person, "max_det", None), per["max_det"]),
         "dtype": (str(face.dtype).replace("torch.", ""), conf["dtype"]),
-    }
+    })
     bad = {}
     for k, (got, want) in pairs.items():
         same = (isinstance(got, dict) and all(got.get(x) == y for x, y
@@ -218,6 +219,7 @@ def one_video(M, cfg0, runtime, probe, video: str, out_dir: str) -> Dict:
     out = {"ok": ok, "error": error, "rows": rows,
            "outputs_missing": _missing(out_dir, rows, cfg.curate_enable),
            "stages": eng._timer.summary() if eng._timer else {},
+           "counters": getattr(eng._timer, "counters", dict)(),
            "bytes": _bytes(out_dir)}
     shutil.rmtree(out_dir, ignore_errors=True)
     return out
@@ -351,13 +353,39 @@ def verify(conf: Dict, weights: Dict, clip, ref_path: str, probe, videos,
     return numbers
 
 
+def window_context(conf: Dict, videos: List[Dict], trace: bool,
+                   frames: int, probe, traced, device_name: str) -> Dict:
+    """What the per-layer readers read (``ctx``) of a window's ``videos``
+    of ``frames`` source frames each. The traced video runs slower under
+    the profiler: the host-clock readings, the port's stages and counters
+    and the FLOPs of ``model.mfu`` come from the videos after it
+    (``timed``); ``kept`` holds the kept face slots of every video, the
+    traced one as video 0."""
+    from .probe import summed_counters, summed_stages
+
+    timed = list(range(int(trace), len(videos)))
+    return {"config": conf, "timed": timed,
+            "timed_s": sum(videos[i]["seconds"] for i in timed),
+            "frames": frames * sum(videos[i]["ok"] for i in timed),
+            "stages": summed_stages(videos[i]["stages"] for i in timed),
+            "counters": summed_counters(videos[i]["counters"]
+                                        for i in timed),
+            "curate_s": [probe.curate_s[i] for i in timed
+                         if i in probe.curate_s],
+            "det_frames": dict(sum((probe.det_frames[i] for i in timed),
+                                   Counter())),
+            "kept": dict(probe.kept),
+            "person_frames": sum(probe.person_frames[i] for i in timed),
+            "trace": traced, "device_name": device_name}
+
+
 def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
              trace: bool, device: str = "cuda", faults=(),
              control: bool = False) -> Dict:
     import torch
 
     from . import traffic
-    from .probe import Probe, summed_stages
+    from .probe import Probe
     from .trace import profiled
 
     t_setup = time.perf_counter()
@@ -382,7 +410,6 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
             f"bytes")
 
         from person_capture_tpu_torch import main as M
-        from person_capture_tpu_torch.models.bridge import load_clip
 
         sets = list(conf["sets"]) + [f"tpu_compute_dtype={conf['dtype']}"]
         if trace:
@@ -400,9 +427,8 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
         if runtime["fullframe"] is not None:
             faces.append(runtime["fullframe"]._get())
         weights = load_weights(conf, device)
-        if conf["embedder"]["kind"] == "clip":
-            for face in faces:
-                load_clip(face.clip_model, weights["embedder"])
+        for role in ROLES:
+            family_of(conf[role], role).load_port(faces, weights[role])
         _agree(conf, cfg, runtime)
         probe = Probe(faces, trace=trace, faults=faults)
         w = one_video(M, cfg, runtime, probe, warm.path,
@@ -452,22 +478,10 @@ def run_cell(bench: Bench, workload: str, seed: int, seconds: float,
             f"{failed} failed; writes per video (bytes): "
             f"{[v['bytes'] for v in videos]}")
 
-        # the traced video runs slower under the profiler: the host-clock
-        # readings and the FLOPs of model.mfu come from the videos after it
-        timed = list(range(int(trace), len(videos)))
-        ctx = {"config": conf, "timed": timed,
-               "timed_s": sum(videos[i]["seconds"] for i in timed),
-               "frames": clip.frames * sum(videos[i]["ok"] for i in timed),
-               "stages": summed_stages(videos[i]["stages"] for i in timed),
-               "curate_s": [probe.curate_s[i] for i in timed
-                            if i in probe.curate_s],
-               "det_frames": dict(sum((probe.det_frames[i] for i in timed),
-                                      Counter())),
-               "kept": dict(probe.kept),
-               "person_frames": sum(probe.person_frames[i] for i in timed),
-               "trace": traced.get("trace"),
-               "device_name": torch.cuda.get_device_name(0) if cuda
-               else "cpu"}
+        ctx = window_context(conf, videos, trace, clip.frames, probe,
+                             traced.get("trace"),
+                             torch.cuda.get_device_name(0) if cuda
+                             else "cpu")
         probe.close()
         del runtime, faces
         gc.collect()

@@ -1,5 +1,6 @@
-"""The harness and what it loads of the port import neither JAX nor the
-JAX package: top-level module names compared whole."""
+"""The harness, its model families and what it loads of the port import
+neither JAX nor the JAX package: top-level module names compared
+whole."""
 
 import subprocess
 import sys
@@ -11,6 +12,11 @@ import sys
 import port_bench.run, port_bench.check, port_bench.calibrate
 import port_bench.flops, port_bench.trace, port_bench.probe
 import port_bench.reference.pipeline
+import os
+from port_bench.families import HERE, family
+for name in sorted(os.listdir(HERE)):
+    if name.endswith(".py") and not name.startswith("_"):
+        family(name[:-3])
 from person_capture_tpu_torch import main as M
 from person_capture_tpu_torch.pipeline import engine, backends, mainpass
 from person_capture_tpu_torch.models import bridge
