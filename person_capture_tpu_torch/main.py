@@ -262,6 +262,15 @@ def resolve_yolo(yolo_model: str):
     return yolo_cfg, resolve_weights("auto", yolo_name)
 
 
+def tower_config(name: str, configs, field: str):
+    """``configs[name]``; a name no entry holds is a configuration error
+    (``ValueError``) that lists the names it knows."""
+    if name not in configs:
+        raise ValueError(f"{field}={name!r}: no such tower; known: "
+                         f"{', '.join(sorted(configs))}")
+    return configs[name]
+
+
 def resolve_reid(backbone: str, weights_spec: str = "auto"):
     """Resolve the ReID tower to ``(clip_cfg, variables|None)``.
 
@@ -271,12 +280,13 @@ def resolve_reid(backbone: str, weights_spec: str = "auto"):
     checkpoint loads the requested arch: open_clip torch state dicts
     (``.pt``/``.pth``/``.bin``) via models/loaders.load_clip_torch, flax
     ``.npz`` via the zoo. Any other spec that is not a file raises
-    ``FileNotFoundError``."""
+    ``FileNotFoundError``; a backbone that ``clip_vit.CONFIGS`` lacks,
+    ``ValueError``."""
     from .models import clip_vit as CV
     from .models.zoo import resolve_weights
 
     spec = (weights_spec or "auto").strip()
-    cfg = CV.CONFIGS.get(backbone, CV.VIT_L_14)
+    cfg = tower_config(backbone, CV.CONFIGS, "reid_backbone")
     if spec.lower() in ("random", "none"):
         return cfg, None
     if os.path.isfile(spec):
@@ -306,6 +316,7 @@ def build_runtime(cfg, args, ap) -> dict:
     from .models import arcface as AF
     from .models import clip_vit as CV
     from .models import scrfd as SD
+    from .models import siglip as SG
     from .models import yolov8 as YV
     from .models.zoo import bundled_weights_path, resolve_weights
     from .pipeline.backends import (ClipReidBackend, LazyBackend,
@@ -353,10 +364,17 @@ def build_runtime(cfg, args, ap) -> dict:
         arc_w = load_checkpoint(args.arcface_weights, "arcface",
                                 flax_variables(AF.IResNet(arc_cfg)), arc_cfg)
 
-    # use_arcface off: a CLIP tower embeds the face chips, at random init
-    # as in the JAX runtime, which passes no CLIP-face weights either
-    clip_face_cfg = (None if cfg.use_arcface
-                     else CV.CONFIGS.get(cfg.clip_face_backbone))
+    # use_arcface off: a CLIP ViT or SigLIP tower embeds the face chips,
+    # at random init as in the JAX runtime, which passes no CLIP-face
+    # weights either
+    clip_face_cfg = None
+    if not cfg.use_arcface:
+        try:
+            clip_face_cfg = tower_config(cfg.clip_face_backbone,
+                                         {**CV.CONFIGS, **SG.CONFIGS},
+                                         "clip_face_backbone")
+        except ValueError as e:
+            ap.error(str(e))
 
     def face_backend(det_size: int, embed_slots: int = 0):
         if cfg.tpu_mesh:
@@ -407,7 +425,7 @@ def build_runtime(cfg, args, ap) -> dict:
         try:
             reid_cfg, reid_w = resolve_reid(cfg.reid_backbone,
                                             args.reid_weights)
-        except FileNotFoundError as e:
+        except (FileNotFoundError, ValueError) as e:
             ap.error(str(e))
         reid_backend = ClipReidBackend(cfg=reid_cfg, weights=reid_w,
                                        device=device)

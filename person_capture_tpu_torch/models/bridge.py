@@ -3,7 +3,7 @@
 The JAX package's weights are flax variable trees (read as numpy from the
 bundled ``.npz``; :func:`..tools.weights.load_npz_variables`). This module
 maps every leaf onto the torch modules of :mod:`.scrfd`, :mod:`.arcface`,
-:mod:`.yolov8` and :mod:`.clip_vit`:
+:mod:`.yolov8`, :mod:`.clip_vit` and :mod:`.siglip`:
 
   * conv kernel HWIO → OIHW; Dense kernel (in, out) → (out, in);
   * BatchNorm ``params/scale,bias`` + ``batch_stats/mean,var`` → weight,
@@ -36,16 +36,21 @@ class _Leaves:
         self.flat: Dict[str, np.ndarray] = flatten_tree(variables)
         self.sd: Dict[str, torch.Tensor] = {}
 
+    def take(self, path: str) -> np.ndarray:
+        """Flax leaf ``path`` as float32, consumed."""
+        try:
+            return np.asarray(self.flat.pop(path), np.float32)
+        except KeyError:
+            raise KeyError(f"checkpoint has no leaf {path!r}") from None
+
+    def put(self, name: str, arr: np.ndarray) -> None:
+        self.sd[name] = torch.from_numpy(np.array(arr))  # a writable copy
+
     def link(self, name: str, path: str, perm=None) -> None:
         """Module tensor ``name`` ← flax leaf ``path``, its axes permuted by
         ``perm`` (flax → torch layout)."""
-        try:
-            arr = np.asarray(self.flat.pop(path), np.float32)
-        except KeyError:
-            raise KeyError(f"checkpoint has no leaf {path!r}") from None
-        if perm is not None:
-            arr = arr.transpose(perm)
-        self.sd[name] = torch.from_numpy(np.array(arr))  # a writable copy
+        arr = self.take(path)
+        self.put(name, arr if perm is None else arr.transpose(perm))
 
     def conv(self, name: str, scope: str, bias: bool = False) -> None:
         self.link(f"{name}.weight", f"params/{scope}/kernel", (3, 2, 0, 1))
@@ -177,6 +182,55 @@ def _clip(lv: _Leaves, model):
     return lv.finish(model)
 
 
+def _siglip_heads(lv: _Leaves, name: str, scope: str, parts) -> None:
+    """big_vision's ``DenseGeneral`` projections ``parts`` of attention
+    ``scope`` (kernel ``[W, heads, d]``, bias ``[heads, d]``) → one
+    ``Linear`` ``name``, their outputs stacked in that order."""
+    kernels = [lv.take(f"params/{scope}/{p}/kernel") for p in parts]
+    lv.put(f"{name}.weight", np.concatenate(
+        [k.reshape(k.shape[0], -1).T for k in kernels]))
+    lv.put(f"{name}.bias", np.concatenate(
+        [lv.take(f"params/{scope}/{p}/bias").reshape(-1) for p in parts]))
+
+
+def _siglip_attn_out(lv: _Leaves, name: str, scope: str) -> None:
+    kernel = lv.take(f"params/{scope}/out/kernel")      # [heads, d, W]
+    lv.put(f"{name}.weight", kernel.reshape(-1, kernel.shape[-1]).T)
+    lv.link(f"{name}.bias", f"params/{scope}/out/bias")
+
+
+def _siglip(lv: _Leaves, model):
+    """The walk over a :class:`..models.siglip.SiglipViT`'s tensors, from
+    big_vision's layout of the tower (a SigLIP checkpoint's ``img``
+    subtree, unscanned): ``embedding`` (conv with bias),
+    ``pos_embedding``, ``Transformer/encoderblock_{i}`` (``LayerNorm_0``,
+    ``MultiHeadDotProductAttention_0`` with ``query``/``key``/``value``/
+    ``out``, ``LayerNorm_1``, ``MlpBlock_0/Dense_{0,1}``),
+    ``Transformer/encoder_norm`` and ``MAPHead_0`` (``probe``, its
+    attention, ``LayerNorm_0``, ``MlpBlock_0``)."""
+    lv.conv("patch_embed", "embedding", bias=True)
+    lv.link("pos_embed", "params/pos_embedding")
+    for i in range(len(model.blocks)):
+        p, scope = f"blocks.{i}", f"Transformer/encoderblock_{i}"
+        att = f"{scope}/MultiHeadDotProductAttention_0"
+        lv.gn(f"{p}.ln1", f"{scope}/LayerNorm_0")
+        _siglip_heads(lv, f"{p}.attn.qkv", att, ("query", "key", "value"))
+        _siglip_attn_out(lv, f"{p}.attn.out", att)
+        lv.gn(f"{p}.ln2", f"{scope}/LayerNorm_1")
+        lv.dense(f"{p}.mlp.fc1", f"{scope}/MlpBlock_0/Dense_0")
+        lv.dense(f"{p}.mlp.fc2", f"{scope}/MlpBlock_0/Dense_1")
+    lv.gn("ln_post", "Transformer/encoder_norm")
+    att = "MAPHead_0/MultiHeadDotProductAttention_0"
+    lv.link("head.probe", "params/MAPHead_0/probe")
+    _siglip_heads(lv, "head.q", att, ("query",))
+    _siglip_heads(lv, "head.kv", att, ("key", "value"))
+    _siglip_attn_out(lv, "head.out", att)
+    lv.gn("head.ln", "MAPHead_0/LayerNorm_0")
+    lv.dense("head.mlp.fc1", "MAPHead_0/MlpBlock_0/Dense_0")
+    lv.dense("head.mlp.fc2", "MAPHead_0/MlpBlock_0/Dense_1")
+    return lv.finish(model)
+
+
 def _yolov8(lv: _Leaves, model):
     """The walk over a :class:`..models.yolov8.YoloV8`'s tensors.
 
@@ -237,6 +291,12 @@ def load_arcface(model, variables: Mapping):
 def load_clip(model, variables: Mapping):
     """Fill a :class:`..models.clip_vit.ClipViT` from flax variables."""
     return _clip(_Leaves(variables), model)
+
+
+def load_siglip(model, variables: Mapping):
+    """Fill a :class:`..models.siglip.SiglipViT` from flax variables in
+    big_vision's layout."""
+    return _siglip(_Leaves(variables), model)
 
 
 def load_yolov8(model, variables: Mapping):

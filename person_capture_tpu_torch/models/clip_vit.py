@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.preprocess import normalize_clip, resize_bicubic
+from ..utils.timing import NULL_TIMER
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's epsilon
 
@@ -54,15 +55,16 @@ class MHA(nn.Module):
         self.qkv = nn.Linear(width, 3 * width)
         self.out = nn.Linear(width, width)
 
-    def forward(self, x):
+    def forward(self, x, timer=NULL_TIMER):
         b, t, w = x.shape
         d = w // self.heads
         q, k, v = (u.reshape(b, t, self.heads, d).transpose(1, 2)
                    for u in self.qkv(x).split(w, dim=-1))
-        att = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
-            / math.sqrt(d)
-        att = torch.softmax(att, dim=-1).to(v.dtype)
-        out = torch.matmul(att, v).transpose(1, 2).reshape(b, t, w)
+        with timer("face.attn"):
+            att = torch.matmul(q.float(), k.float().transpose(-1, -2)) \
+                / math.sqrt(d)
+            att = torch.softmax(att, dim=-1).to(v.dtype)
+            out = torch.matmul(att, v).transpose(1, 2).reshape(b, t, w)
         return self.out(out)
 
 
@@ -75,14 +77,16 @@ class Block(nn.Module):
         self.fc = nn.Linear(width, 4 * width)
         self.proj = nn.Linear(4 * width, width)
 
-    def forward(self, x):
-        x = x + self.attn(self.ln1(x))
+    def forward(self, x, timer=NULL_TIMER):
+        x = x + self.attn(self.ln1(x), timer)
         return x + self.proj(F.gelu(self.fc(self.ln2(x))))
 
 
 class ClipViT(nn.Module):
     """Input ``[B, S, S, 3]`` normalized RGB (channels last, as the JAX
     model takes it) → ``[B, embed_dim]``."""
+
+    normalize = staticmethod(normalize_clip)
 
     def __init__(self, cfg: ClipVitConfig):
         super().__init__()
@@ -98,14 +102,15 @@ class ClipViT(nn.Module):
         self.ln_post = nn.LayerNorm(w, eps=LN_EPS)
         self.proj = nn.Parameter(torch.zeros(w, cfg.embed_dim))
 
-    def forward(self, x):
+    def forward(self, x, timer=NULL_TIMER):
+        """``timer`` names each attention call ``face.attn``."""
         x = self.patch_embed(x.permute(0, 3, 1, 2))
         x = x.flatten(2).transpose(1, 2)                # [B, n·n, W], (h, w)
         cls = self.class_token.expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1) + self.pos_embed
         x = self.ln_pre(x)
         for blk in self.blocks:
-            x = blk(x)
+            x = blk(x, timer)
         return self.ln_post(x[:, 0]) @ self.proj
 
 
@@ -130,11 +135,14 @@ def random_init(model: ClipViT, generator: torch.Generator) -> ClipViT:
     return model
 
 
-def encode_images(model: ClipViT, crops_bgr):
+def encode_images(model, crops_bgr, timer=NULL_TIMER):
     """Embed BGR crops ``[N, H, W, 3]`` (uint8 or float, any size) →
-    L2-normalized float32 ``[N, D]``. A crop not already ``S×S`` has its
+    L2-normalized float32 ``[N, D]`` with an image tower (``ClipViT``, or
+    ``siglip.SiglipViT``: each brings its own input normalisation, and the
+    tower runs in its parameters' dtype). A crop not already ``S×S`` has its
     shortest side resized to ``S`` (bicubic, as ``jax.image.resize``) and is
-    centre-cropped, like the open_clip preprocess."""
+    centre-cropped, like the open_clip preprocess. ``timer`` names the
+    tower's attention calls."""
     s = model.cfg.image_size
     x = crops_bgr.float()
     h, w = int(x.shape[1]), int(x.shape[2])
@@ -145,9 +153,10 @@ def encode_images(model: ClipViT, crops_bgr):
         y0 = int(round((nh - s) / 2.0))
         x0 = int(round((nw - s) / 2.0))
         x = x[:, y0:y0 + s, x0:x0 + s]
-    dtype = model.proj.dtype
+    dtype = next(model.parameters()).dtype
     with torch.inference_mode():
-        emb = model(normalize_clip(x).to(dtype).contiguous()).float()
+        emb = model(model.normalize(x).to(dtype).contiguous(),
+                    timer).float()
     norm = torch.clamp(torch.linalg.norm(emb, dim=-1, keepdim=True),
                        min=1e-10)
     return emb / norm

@@ -122,3 +122,14 @@ def normalize_clip(img_bgr):
     mean = torch.tensor(CLIP_MEAN, device=rgb.device)
     std = torch.tensor(CLIP_STD, device=rgb.device)
     return (rgb - mean) / std
+
+
+SIGLIP_MEAN = SIGLIP_STD = (0.5, 0.5, 0.5)
+
+
+def normalize_siglip(img_bgr):
+    """SigLIP normalization (BGR input → RGB, /255, mean = std = 0.5)."""
+    rgb = img_bgr.flip(-1).float() / 255.0
+    mean = torch.tensor(SIGLIP_MEAN, device=rgb.device)
+    std = torch.tensor(SIGLIP_STD, device=rgb.device)
+    return (rgb - mean) / std

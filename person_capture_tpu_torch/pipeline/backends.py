@@ -157,9 +157,10 @@ class ScrfdArcFaceBackend:
     Same constructor and ``extract_batch`` / ``submit_batch`` contract as
     the JAX package's ``ScrfdArcFaceBackend``: a ``YoloConfig`` with a
     5-point keypoint head as ``scrfd_cfg`` selects the YOLOv8-face
-    detector, ``use_arcface=False`` embeds the chips with a CLIP tower
-    (``clip_face_cfg``, ViT-L-14 unless given; random init unless
-    ``clip_face_weights``). An ``.onnx`` path as ``scrfd_weights`` or
+    detector, ``use_arcface=False`` embeds the chips with a CLIP-style
+    image tower (``clip_face_cfg``: a ``ClipVitConfig``, ViT-L-14 unless
+    given, or a ``SiglipConfig``; random init unless ``clip_face_weights``,
+    a flax tree in the tower's layout). An ``.onnx`` path as ``scrfd_weights`` or
     ``arcface_weights`` runs that graph (``models/onnx_zoo``) in the
     compute dtype. ``host_align=True`` splits the chain into detect on the
     device, a cv2 similarity warp of each face on the host
@@ -169,7 +170,9 @@ class ScrfdArcFaceBackend:
     ``timer`` (a ``utils.timing.StepTimer``, the engine's for the length of
     a run) names the stages of each call: ``face.upload``, ``face.convert``,
     ``face.detect`` (inside it ``face.nms``), ``face.align`` and
-    ``face.embed`` (inside it ``face.encode``), and counts ``embed.chips`` (chips through the tower, at
+    ``face.embed`` (inside it ``face.encode``, and inside that a CLIP-style
+    tower's ``face.attn``, each attention call), and counts
+    ``embed.chips`` (chips through the tower, at
     dispatch) and ``embed.chips_kept`` (slots the detector kept among them,
     from the fetched host mask).
     """
@@ -185,9 +188,10 @@ class ScrfdArcFaceBackend:
         from ..models import arcface as AF
         from ..models import clip_vit as CV
         from ..models import scrfd as SD
+        from ..models import siglip as SG
         from ..models import yolov8 as YV
         from ..models.bridge import (load_arcface, load_clip, load_scrfd,
-                                     load_yolov8)
+                                     load_siglip, load_yolov8)
         from ..models.onnx_zoo import (OnnxArcFaceEncoder, OnnxScrfdDetector,
                                        detect_faces_onnx, is_onnx_path)
 
@@ -247,18 +251,27 @@ class ScrfdArcFaceBackend:
             self._embedder = partial(AF.encode_chips, self.arcface_model,
                                      flip_tta=self.flip_tta)
         else:
-            # identity embedding by a CLIP image tower when ArcFace is off
+            # identity embedding by a CLIP-style image tower when ArcFace
+            # is off
             clip_cfg = clip_face_cfg or CV.VIT_L_14
-            clip = CV.ClipViT(clip_cfg).eval()
+            tower, init, load = ((SG.SiglipViT, SG.random_init, load_siglip)
+                                 if isinstance(clip_cfg, SG.SiglipConfig)
+                                 else (CV.ClipViT, CV.random_init, load_clip))
+            clip = tower(clip_cfg).eval()
             if clip_face_weights is None:
-                CV.random_init(clip, torch.Generator().manual_seed(seed + 1))
+                init(clip, torch.Generator().manual_seed(seed + 1))
             else:
-                load_clip(clip, clip_face_weights)
+                load(clip, clip_face_weights)
             self.clip_model = clip.to(device=self.device, dtype=self.dtype)
             self.embed_dim = clip_cfg.embed_dim
-            self._embedder = partial(CV.encode_images, self.clip_model)
+            self._embedder = self._encode_tower
 
     # ---- device program -------------------------------------------------
+    def _encode_tower(self, chips: torch.Tensor) -> torch.Tensor:
+        from ..models.clip_vit import encode_images
+
+        return encode_images(self.clip_model, chips, timer=self.timer)
+
     def _encode(self, chips: torch.Tensor) -> torch.Tensor:
         """The embedder on ``[N, 112, 112, 3]`` chips → ``[N, D]``: every
         tower call goes through here (a caller may wrap it), and it is the
