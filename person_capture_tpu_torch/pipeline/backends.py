@@ -53,6 +53,15 @@ def pad_batch(frames, batch: int, idxs=None):
     return arr, out_idxs, valid, n
 
 
+def embed_bucket(n: int, total: int) -> int:
+    """Rows of the tower batch that carries ``n`` kept chips of a call's
+    ``total`` slots: the smallest power of two ≥ ``n``, at least 8 and at
+    most ``total``. So the tower sees a few fixed sizes, each of which
+    cuDNN and cuBLAS plan once, and never more than twice the kept chips
+    (or 8)."""
+    return min(int(total), max(8, 1 << (int(n) - 1).bit_length()))
+
+
 def extract_single_image(backend, img: np.ndarray, canvas: int = 0):
     """Run a face backend on ONE arbitrary-size image using a fixed
     [1, canvas, canvas, 3] shape, returning detections in original-image
@@ -172,8 +181,11 @@ class ScrfdArcFaceBackend:
     ``face.detect`` (inside it ``face.nms``), ``face.align`` and
     ``face.embed`` (inside it ``face.encode``, and inside that a CLIP-style
     tower's ``face.attn``, each attention call), and counts
-    ``embed.chips`` (chips through the tower, at
-    dispatch) and ``embed.chips_kept`` (slots the detector kept among them,
+    ``embed.slots`` (the slots a call offers the embedder),
+    ``embed.chips`` (chips through the tower: the kept slots of valid frames
+    padded to :func:`embed_bucket` rows, at dispatch),
+    ``embed.calls_skipped`` (calls that kept no slot and so made no tower
+    call) and ``embed.chips_kept`` (slots the detector kept on valid frames,
     from the fetched host mask).
     """
 
@@ -286,8 +298,8 @@ class ScrfdArcFaceBackend:
                 return i420_to_bgr(wire)
             return wire.float()
 
-    def _fused(self, wire: torch.Tensor) -> torch.Tensor:
-        return self._fused_bgr(self._convert(wire))
+    def _fused(self, wire: torch.Tensor, valid) -> torch.Tensor:
+        return self._fused_bgr(self._convert(wire), valid)
 
     @torch.inference_mode()
     def _detect_bgr(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -304,33 +316,55 @@ class ScrfdArcFaceBackend:
                                 timer=self.timer)
 
     @torch.inference_mode()
-    def _embed(self, chips: torch.Tensor, mask: torch.Tensor):
-        """Embed only: ``[N, 112, 112, 3]`` chips → (feats ``[N, D]``,
-        quality ``[N]``), zero where ``mask [N]`` is False."""
+    def _embed(self, chips: torch.Tensor, kept: torch.Tensor):
+        """Embed only the kept chips: ``[N, 112, 112, 3]`` chips and the
+        indices ``kept [n]`` of the kept rows on the device → (feats ``[N,
+        D]``, quality ``[N]``), zero in every other row. The kept chips are
+        gathered into the first rows of a zero batch of
+        :func:`embed_bucket` rows, embedded in one tower call and scattered
+        back; with none kept there is no call."""
         from ..ops.quality import chip_quality
 
-        self.timer.count("embed.chips", chips.shape[0])
-        zero = torch.zeros((), device=chips.device)
+        total, n = chips.shape[0], kept.shape[0]
+        self.timer.count("embed.slots", total)
+        feats = torch.zeros((total, self.embed_dim), device=chips.device)
+        quality = torch.zeros((total,), device=chips.device)
+        if n == 0:
+            self.timer.count("embed.calls_skipped", 1)
+            return feats, quality
+        rows = embed_bucket(n, total)
+        self.timer.count("embed.chips", rows)
         with self.timer("face.embed"):
-            feats = torch.where(mask[:, None], self._encode(chips), zero)
-            return feats, torch.where(mask, chip_quality(chips), zero)
+            gathered = chips.new_zeros((rows, *chips.shape[1:]))
+            gathered[:n] = chips[kept]
+            feats[kept] = self._encode(gathered)[:n]
+            quality[kept] = chip_quality(gathered[:n])
+        return feats, quality
 
     @torch.inference_mode()
-    def _fused_bgr(self, frames: torch.Tensor) -> torch.Tensor:
+    def _fused_bgr(self, frames: torch.Tensor, valid=None) -> torch.Tensor:
+        """The face chain on float32 BGR ``[B, H, W, 3]`` on the device →
+        packed ``[B, F, 17+D]``. ``valid [B]`` (host bool, ``None``: every
+        frame) marks the frames whose slots are embedded: the slots of the
+        others carry zero features and quality."""
         from ..ops.align import align_chips
-        from ..ops.quality import chip_quality
 
         b = frames.shape[0]
         det = self._detect_bgr(frames)
         mask = det["mask"]
         k = min(self.embed_slots or self.max_faces, self.max_faces)
+        keep = mask[:, :k]
+        if valid is not None:
+            keep = keep & self._upload(np.asarray(valid, bool))[:, None]
+        # the kept count is read here, before the chips are aligned, so the
+        # read waits on the detector alone (its NMS already read the device)
+        kept = torch.nonzero(keep.reshape(-1)).squeeze(1)
         with self.timer("face.align"):
             chips = align_chips(frames, det["kps"][:, :k], mask[:, :k])
-        flat = chips.reshape(b * k, *chips.shape[2:])
-        self.timer.count("embed.chips", b * k)
-        with self.timer("face.embed"):
-            feats = self._encode(flat).reshape(b, k, -1)
-            quality = chip_quality(flat).reshape(b, k)
+        feats, quality = self._embed(
+            chips.reshape(b * k, *chips.shape[2:]), kept)
+        feats = feats.reshape(b, k, -1)
+        quality = quality.reshape(b, k)
         if k < self.max_faces:
             pad = self.max_faces - k
             feats = F.pad(feats, (0, 0, 0, pad))
@@ -340,8 +374,6 @@ class ScrfdArcFaceBackend:
             # score, so the dropped slots are the lowest-score faces)
             mask = mask & (torch.arange(self.max_faces, device=mask.device)
                            < k)[None, :]
-        feats = torch.where(mask[..., None], feats, torch.zeros((), device=feats.device))
-        quality = torch.where(mask, quality, torch.zeros((), device=quality.device))
         return torch.cat([
             det["boxes"],                                  # 4
             det["kps"].reshape(b, self.max_faces, 10),     # 10
@@ -392,7 +424,7 @@ class ScrfdArcFaceBackend:
         if self.host_align:
             out = self._extract_host_align(frames, valid)
             return lambda: out
-        return self._fetcher(self._fused(self._send(frames)), valid)
+        return self._fetcher(self._fused(self._send(frames), valid), valid)
 
     def _align_host(self, frames, kps, mask):
         """cv2 similarity warp of every valid face (reference:
@@ -416,7 +448,7 @@ class ScrfdArcFaceBackend:
 
     def _extract_host_align(self, frames, valid):
         """Detect on the device (the BGR frames as they are, no wire
-        format), align on the host, embed every slot on the device."""
+        format), align on the host, embed the kept slots on the device."""
         frames = np.asarray(frames)
         det = self._detect_bgr(self._upload(frames).float())
         host = {k: start_download(v)() for k, v in det.items()}
@@ -425,8 +457,8 @@ class ScrfdArcFaceBackend:
         b, f = host["mask"].shape
         with self.timer("face.align"):
             chips = self._align_host(frames, host["kps"], host["mask"])
-        mask = torch.from_numpy(host["mask"].reshape(-1)).to(self.device)
-        feats, quality = self._embed(self._upload(chips), mask)
+        kept = self._upload(np.flatnonzero(host["mask"].reshape(-1)))
+        feats, quality = self._embed(self._upload(chips), kept)
         host["feats"] = start_download(feats)().reshape(b, f, -1)
         host["quality"] = start_download(quality)().reshape(b, f)
         return host
@@ -447,16 +479,16 @@ class ScrfdArcFaceBackend:
         return self._convert(self._send(frames))
 
     def submit_device(self, bgr_dev, valid, frame_idxs=None):
-        return self._fetcher(self._fused_bgr(bgr_dev), valid)
+        return self._fetcher(self._fused_bgr(bgr_dev, valid), valid)
 
     # ---- combined face+person step: ONE chain of ops, ONE download ------
     def _combined_with(self, person):
         """The face chain AND the person detector on one device-resident
         BGR batch, everything packed into one ``[B, F·(17+D) + P·6]``
-        array."""
+        array. ``valid`` as :meth:`_fused_bgr` takes it."""
         @torch.inference_mode()
-        def combo(bgr):
-            f = self._fused_bgr(bgr)                  # [B, F, 17+D]
+        def combo(bgr, valid):
+            f = self._fused_bgr(bgr, valid)           # [B, F, 17+D]
             p = person._fused(bgr, person.conf)       # dict of [B, P, ...]
             b = f.shape[0]
             pp = torch.cat([p["boxes"], p["scores"][..., None],
@@ -469,21 +501,22 @@ class ScrfdArcFaceBackend:
                                   frame_idxs=None):
         """Shared-upload + combined program: returns ONE fetch producing
         ``(face_out, person_out)`` from a single packed download."""
-        return self._combo_fetch(self._combined_with(person)(bgr_dev), valid,
-                                 person)
+        return self._combo_fetch(self._combined_with(person)(bgr_dev, valid),
+                                 valid, person)
 
     def _combined_wire_with(self, person):
         """The combined program from the WIRE format (uint8 i420/bgr):
         convert → face chain → person detector → packed output."""
         combo = self._combined_with(person)
-        return lambda wire: combo(self._convert(wire))
+        return lambda wire, valid: combo(self._convert(wire), valid)
 
     def submit_wire_with_person(self, person, frames, valid,
                                 frame_idxs=None):
         """Host frames → wire format → ONE upload, one chain of ops running
         convert + face + person; returns one fetch producing
         ``(face_out, person_out)`` from a single packed download."""
-        packed_dev = self._combined_wire_with(person)(self._send(frames))
+        packed_dev = self._combined_wire_with(person)(self._send(frames),
+                                                      valid)
         return self._combo_fetch(packed_dev, valid, person)
 
     def _combo_fetch(self, packed_dev, valid, person):

@@ -162,6 +162,10 @@ def test_embed_counters_count_chips_and_kept_slots(tiny_face):
     valid = np.array([True, True, False])
     timer = StepTimer()
     face.timer = person.timer = timer
+    seen = []
+    encode = face._encode
+    face._encode = lambda chips: seen.append(int(chips.shape[0])) \
+        or encode(chips)
     try:
         masks = [face.submit_batch(frames, valid)()["mask"],
                  face.extract_batch(frames[:1], np.ones(1, bool))["mask"],
@@ -169,9 +173,13 @@ def test_embed_counters_count_chips_and_kept_slots(tiny_face):
                                               valid)()[0]["mask"]]
     finally:
         face.timer = person.timer = NULL_TIMER
+        del face._encode
     c = timer.counters()
-    # b·k chips a call (k = embed_slots), padding frames included
-    assert c["embed.chips"] == (3 + 1 + 3) * 3
+    # b·k slots offered a call (k = embed_slots), padding frames included
+    assert c["embed.slots"] == (3 + 1 + 3) * 3
+    # the tower runs the kept slots of valid frames, padded to a bucket
+    assert c["embed.chips"] == sum(seen)
+    assert c.get("embed.calls_skipped", 0) == 3 - len(seen)
     kept = sum(int(m.sum()) for m in masks)
     assert c["embed.chips_kept"] == kept
     assert 0 < kept <= (2 + 1 + 2) * 3
