@@ -5,7 +5,9 @@ identity embeddings. :class:`ScrfdArcFaceBackend` is the counterpart of the
 JAX package's fused program (I420 wire → BGR → letterbox → SCRFD → 5-pt
 align → ArcFace → quality), run as torch ops on the configured device, and
 of its combined face+person step with :class:`YoloPersonBackend` (one
-upload, one chain of ops, one packed download per batch).
+upload, one chain of ops, one packed download per batch), which
+:func:`submit_faces_and_persons` picks for the main pass wherever both
+backends have it.
 :class:`ClipReidBackend` embeds person crops with the CLIP ViT tower (the
 ReID match modes, and the curator's scene features).
 :class:`ShardedScrfdArcFaceBackend` runs the face chain over a device mesh
@@ -121,6 +123,25 @@ class LazyBackend:
             self._pending[name] = value
 
 
+def submit_faces_and_persons(face, person, frames, valid, frame_idxs=None):
+    """Enqueue one batch on the face backend and, unless ``person`` is
+    ``None``, the person backend; returns one fetch producing ``(faces,
+    persons or None)``. The combined step (one upload, one chain of ops,
+    one download) where the face backend has ``submit_wire_with_person``
+    and the person backend ``detect_device``; else each backend's
+    ``submit_batch``, the person program enqueued right after the face
+    program so both run before either download."""
+    if person is not None and hasattr(face, "submit_wire_with_person") \
+            and hasattr(person, "detect_device"):
+        return face.submit_wire_with_person(person, frames, valid,
+                                            frame_idxs)
+    faces = face.submit_batch(frames, valid, frame_idxs)
+    if person is None:
+        return lambda: (faces(), None)
+    persons = person.submit_batch(frames, valid, frame_idxs)
+    return lambda: (faces(), persons())
+
+
 def i420_to_bgr(planes_u8: torch.Tensor) -> torch.Tensor:
     """``[B, H*3/2, W]`` uint8 I420 → ``[B, H, W, 3]`` float32 BGR
     (full-range BT.601 with linear chroma upsample, matching
@@ -163,8 +184,10 @@ class ScrfdArcFaceBackend:
     I420 wire → BGR → letterbox → SCRFD → NMS into fixed slots → 5-pt chip
     warp → ArcFace → chip quality → one packed ``[B, F, 17+D]`` array.
 
-    Same constructor and ``extract_batch`` / ``submit_batch`` contract as
-    the JAX package's ``ScrfdArcFaceBackend``: a ``YoloConfig`` with a
+    Same constructor and ``extract_batch`` / ``submit_batch`` /
+    ``submit_wire_with_person`` (the combined face+person step, with a
+    :class:`YoloPersonBackend`) contract as the JAX package's
+    ``ScrfdArcFaceBackend``: a ``YoloConfig`` with a
     5-point keypoint head as ``scrfd_cfg`` selects the YOLOv8-face
     detector, ``use_arcface=False`` embeds the chips with a CLIP-style
     image tower (``clip_face_cfg``: a ``ClipVitConfig``, ViT-L-14 unless
@@ -298,9 +321,6 @@ class ScrfdArcFaceBackend:
                 return i420_to_bgr(wire)
             return wire.float()
 
-    def _fused(self, wire: torch.Tensor, valid) -> torch.Tensor:
-        return self._fused_bgr(self._convert(wire), valid)
-
     @torch.inference_mode()
     def _detect_bgr(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Detect only: float32 BGR ``[B, H, W, 3]`` on the device →
@@ -424,7 +444,9 @@ class ScrfdArcFaceBackend:
         if self.host_align:
             out = self._extract_host_align(frames, valid)
             return lambda: out
-        return self._fetcher(self._fused(self._send(frames), valid), valid)
+        wire = self._send(frames)
+        return self._fetcher(self._fused_bgr(self._convert(wire), valid),
+                             valid)
 
     def _align_host(self, frames, kps, mask):
         """cv2 similarity warp of every valid face (reference:
@@ -471,53 +493,24 @@ class ScrfdArcFaceBackend:
     def extract_batch(self, frames, valid, frame_idxs=None):
         return self.submit_batch(frames, valid, frame_idxs)()
 
-    # ---- shared-upload path (one transfer feeds face + person programs) --
-    def upload_shared(self, frames: np.ndarray) -> torch.Tensor:
-        """Host frames → device-resident float32 BGR via the wire format;
-        the result feeds both :meth:`submit_device` and
-        :meth:`YoloPersonBackend.submit_device`."""
-        return self._convert(self._send(frames))
-
-    def submit_device(self, bgr_dev, valid, frame_idxs=None):
-        return self._fetcher(self._fused_bgr(bgr_dev, valid), valid)
-
     # ---- combined face+person step: ONE chain of ops, ONE download ------
-    def _combined_with(self, person):
-        """The face chain AND the person detector on one device-resident
-        BGR batch, everything packed into one ``[B, F·(17+D) + P·6]``
-        array. ``valid`` as :meth:`_fused_bgr` takes it."""
-        @torch.inference_mode()
-        def combo(bgr, valid):
-            f = self._fused_bgr(bgr, valid)           # [B, F, 17+D]
-            p = person._fused(bgr, person.conf)       # dict of [B, P, ...]
-            b = f.shape[0]
-            pp = torch.cat([p["boxes"], p["scores"][..., None],
-                            p["mask"].float()[..., None]], dim=-1)
-            return torch.cat([f.reshape(b, -1), pp.reshape(b, -1)], dim=1)
-
-        return combo
-
-    def submit_device_with_person(self, person, bgr_dev, valid,
-                                  frame_idxs=None):
-        """Shared-upload + combined program: returns ONE fetch producing
-        ``(face_out, person_out)`` from a single packed download."""
-        return self._combo_fetch(self._combined_with(person)(bgr_dev, valid),
-                                 valid, person)
-
-    def _combined_wire_with(self, person):
-        """The combined program from the WIRE format (uint8 i420/bgr):
-        convert → face chain → person detector → packed output."""
-        combo = self._combined_with(person)
-        return lambda wire, valid: combo(self._convert(wire), valid)
-
     def submit_wire_with_person(self, person, frames, valid,
                                 frame_idxs=None):
         """Host frames → wire format → ONE upload, one chain of ops running
-        convert + face + person; returns one fetch producing
-        ``(face_out, person_out)`` from a single packed download."""
-        packed_dev = self._combined_wire_with(person)(self._send(frames),
-                                                      valid)
-        return self._combo_fetch(packed_dev, valid, person)
+        convert, the face chain and ``person.detect_device`` on the same
+        device BGR, everything packed into one ``[B, F·(17+D) + P·6]``
+        array; returns one fetch producing ``(face_out, person_out)`` from
+        its single download. ``valid`` as :meth:`_fused_bgr` takes it."""
+        wire = self._send(frames)
+        bgr = self._convert(wire)
+        with torch.inference_mode():
+            f = self._fused_bgr(bgr, valid)           # [B, F, 17+D]
+            p = person.detect_device(bgr)             # dict of [B, P, ...]
+            b = f.shape[0]
+            pp = torch.cat([p["boxes"], p["scores"][..., None],
+                            p["mask"].float()[..., None]], dim=-1)
+            packed = torch.cat([f.reshape(b, -1), pp.reshape(b, -1)], dim=1)
+        return self._combo_fetch(packed, valid, person)
 
     def _combo_fetch(self, packed_dev, valid, person):
         valid = np.asarray(valid).copy()
@@ -585,8 +578,8 @@ class ShardedScrfdArcFaceBackend:
     every process gets the whole result (parallel/multihost.py). The frames
     go up as BGR, as in the JAX package's sharded step. Exposes the
     extract_batch/submit_batch protocol and, like the JAX backend, no
-    shared-upload or combined face+person entry: the main pass calls the
-    person detector on its own.
+    combined face+person entry: :func:`submit_faces_and_persons` calls the
+    person detector's own ``submit_batch`` beside it.
     """
 
     def __init__(self, mesh=None, mesh_spec: str = "", scrfd_cfg=None,
@@ -658,10 +651,12 @@ class YoloPersonBackend:
     top-k → NMS into ``max_det`` slots → person boxes/scores/mask in reader
     frame coords, clamped to the frame.
 
-    Same constructor and ``detect_batch`` / ``submit_batch`` /
-    ``submit_device`` contract as the JAX package's ``YoloPersonBackend``
-    (det size 640 and bf16 unless given); ``_fused(frames_bgr_float, conf)``
-    is the program the face backend's combined step runs.
+    Same constructor and ``detect_batch`` / ``submit_batch`` contract as
+    the JAX package's ``YoloPersonBackend`` (det size 640 and bf16 unless
+    given). :meth:`detect_device` is the device program on frames already
+    on the device: ``submit_batch`` runs it on the uploaded raw BGR, and
+    :meth:`ScrfdArcFaceBackend.submit_wire_with_person` on the BGR its
+    wire converts to.
     """
 
     def __init__(self, cfg=None, det_size: int = 640, conf: float = 0.35,
@@ -687,7 +682,10 @@ class YoloPersonBackend:
         self.model = model.to(device=self.device, dtype=self.dtype)
 
     @torch.inference_mode()
-    def _fused(self, frames: torch.Tensor, conf: float):
+    def detect_device(self, frames: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """BGR ``[B, H, W, 3]`` on the device (any dtype) → person
+        ``boxes``/``scores``/``mask`` on the device at ``self.conf``: the
+        ``person.detect`` span."""
         from ..models.yolov8 import detect_persons
         from ..ops.preprocess import letterbox_topleft
 
@@ -696,7 +694,7 @@ class YoloPersonBackend:
             padded, scale = letterbox_topleft(frames, self.det_size)
             scales = torch.full((frames.shape[0],), scale,
                                 dtype=torch.float32, device=frames.device)
-            return detect_persons(self.model, padded, scales, conf,
+            return detect_persons(self.model, padded, scales, self.conf,
                                   self.max_det,
                                   clip_hw=tuple(frames.shape[1:3]))
 
@@ -704,21 +702,13 @@ class YoloPersonBackend:
         return self.submit_batch(frames, valid, frame_idxs)()
 
     def submit_batch(self, frames, valid, frame_idxs=None):
-        """Enqueue the person program on the raw BGR frames and return a
-        fetcher."""
+        """Upload the raw BGR frames, enqueue :meth:`detect_device` and
+        return a fetcher."""
         t = torch.from_numpy(np.ascontiguousarray(frames))
         if self.device.type == "cuda":
             t = t.pin_memory().to(self.device, non_blocking=True)
-        return self._submit(t, valid)
-
-    def submit_device(self, bgr_dev, valid, frame_idxs=None):
-        """Shared-upload variant: consume the device-resident float32 BGR
-        of :meth:`ScrfdArcFaceBackend.upload_shared`."""
-        return self._submit(bgr_dev, valid)
-
-    def _submit(self, frames_dev, valid):
-        out = self._fused(frames_dev, self.conf)
-        downloads = {k: start_download(v) for k, v in out.items()}
+        downloads = {k: start_download(v)
+                     for k, v in self.detect_device(t).items()}
         valid = np.asarray(valid).copy()
 
         def fetch():
@@ -803,6 +793,10 @@ class OraclePersonBackend:
         self.max_det = int(max_det)
         self.scale = float(scale)
 
+    def submit_batch(self, frames, valid, frame_idxs=None):
+        out = self.detect_batch(frames, valid, frame_idxs)
+        return lambda: out
+
     def detect_batch(self, frames, valid, frame_idxs=None):
         b = frames.shape[0]
         h, w = frames.shape[1], frames.shape[2]
@@ -845,6 +839,10 @@ class OracleBackend:
         v = np.zeros(self.embed_dim, np.float32)
         v[identity % self.embed_dim] = 1.0
         return v
+
+    def submit_batch(self, frames, valid, frame_idxs=None):
+        out = self.extract_batch(frames, valid, frame_idxs)
+        return lambda: out
 
     def extract_batch(self, frames, valid, frame_idxs=None):
         b = frames.shape[0]

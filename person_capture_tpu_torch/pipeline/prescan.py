@@ -133,7 +133,6 @@ def _run_prescan_inner(reader, backend, cfg: SessionConfig, bank: RefBank,
     # so device compute overlaps the host round trip(s). Replay stays
     # submission-ordered, so spans/bank are depth-independent.
     inflight: List[Tuple[Callable, List]] = []
-    submit = getattr(backend, "submit_batch", None)
     pipe_depth = max(1, int(getattr(cfg, "tpu_pipeline_depth", 1) or 1))
 
     def _resolve(entry):
@@ -156,11 +155,7 @@ def _run_prescan_inner(reader, backend, cfg: SessionConfig, bank: RefBank,
             with timer("prescan.submit"):
                 frames, idxs, valid, n = pad_batch(pend_frames, batch,
                                                    idxs=pend_idxs)
-                if submit is not None:
-                    fetch = submit(frames, valid, idxs)
-                else:
-                    out_now = backend.extract_batch(frames, valid, idxs)
-                    fetch = lambda out_now=out_now: out_now
+                fetch = backend.submit_batch(frames, valid, idxs)
         if fetch is not None or order:
             inflight.append((fetch, order))
             pend_idxs, pend_frames, order = [], [], []

@@ -314,9 +314,10 @@ def _make_variant(frame: np.ndarray, kind: str, param):
 class RecoveringFaceBackend:
     """Wrap a FaceBatchBackend with the batched recovery ladder.
 
-    Same extract_batch/submit_batch protocol; recovery resolves inside the
-    batch's fetcher so drivers (prescan/mainpass ordered replay) need no
-    changes. At most ``max_extra_batches`` additional device calls per
+    Same extract_batch/submit_batch protocol, and the inner backend's
+    combined face+person step where it has one; recovery resolves inside
+    the batch's fetcher so drivers (prescan/mainpass ordered replay) need
+    no changes. At most ``max_extra_batches`` additional device calls per
     original batch.
     """
 
@@ -327,15 +328,7 @@ class RecoveringFaceBackend:
         self.max_extra_batches = int(max_extra_batches)
         self.nms_iou = float(nms_iou)
         self.recovered_faces = 0    # observability: hits found by the ladder
-        # shared-upload capability mirrors the INNER backend: the mainpass
-        # selects its dispatch path with hasattr(backend, "upload_shared"),
-        # so exposing the facade methods over an inner without them (e.g.
-        # the sharded backend) would select a crashing path
-        if hasattr(inner, "upload_shared"):
-            self.upload_shared = self._upload_shared
-            self.submit_device = self._submit_device
-        if hasattr(inner, "submit_device_with_person"):
-            self.submit_device_with_person = self._submit_device_with_person
+        # bound only over an inner with a combined step (the sharded has none)
         if hasattr(inner, "submit_wire_with_person"):
             self.submit_wire_with_person = self._submit_wire_with_person
 
@@ -374,10 +367,7 @@ class RecoveringFaceBackend:
     def submit_batch(self, frames, valid, frame_idxs=None):
         frames = np.asarray(frames)
         valid = np.asarray(valid).copy()
-        fetch0 = (self.inner.submit_batch(frames, valid, frame_idxs)
-                  if hasattr(self.inner, "submit_batch")
-                  else (lambda out=self.inner.extract_batch(
-                      frames, valid, frame_idxs): out))
+        fetch0 = self.inner.submit_batch(frames, valid, frame_idxs)
         # no defensive copy: both pipeline drivers np.stack a FRESH batch
         # per submit and never mutate it afterwards (a copy here cost a
         # full-batch memcpy — ~150 MB at batch 128 × 832 px — per submit
@@ -387,49 +377,6 @@ class RecoveringFaceBackend:
         def fetch():
             out = fetch0()
             return self._recover(kept, valid, out)
-
-        return fetch
-
-    # shared-upload path passthrough (bound as instance attributes in
-    # __init__ only when the inner backend has the capability): the ladder
-    # still needs the HOST frames (variants are built on host), so
-    # upload_shared retains them for the matching submit_device
-    # (single-threaded driver contract). No defensive copy — the drivers
-    # stack a fresh batch per submit and never mutate it (same contract as
-    # submit_batch above; a copy cost a full-batch memcpy per submit).
-    def _upload_shared(self, frames):
-        self._shared_host = np.asarray(frames)
-        return self.inner.upload_shared(frames)
-
-    def _submit_device(self, bgr_dev, valid, frame_idxs=None):
-        kept = getattr(self, "_shared_host", None)
-        self._shared_host = None
-        fetch0 = self.inner.submit_device(bgr_dev, valid, frame_idxs)
-        valid = np.asarray(valid).copy()
-
-        def fetch():
-            out = fetch0()
-            if kept is None:
-                return out
-            return self._recover(kept, valid, out)
-
-        return fetch
-
-    def _submit_device_with_person(self, person, bgr_dev, valid,
-                                   frame_idxs=None):
-        """Combined face+person single-download dispatch: the recovery
-        ladder applies to the FACE half only (person boxes pass through)."""
-        kept = getattr(self, "_shared_host", None)
-        self._shared_host = None
-        fetch0 = self.inner.submit_device_with_person(person, bgr_dev,
-                                                      valid, frame_idxs)
-        valid = np.asarray(valid).copy()
-
-        def fetch():
-            out, person_out = fetch0()
-            if kept is not None:
-                out = self._recover(kept, valid, out)
-            return out, person_out
 
         return fetch
 

@@ -4,13 +4,17 @@ chip warp → ArcFace → quality → packed ``[B, F, 17+D]``), fp32 on both
 sides with the bundled weights.
 
 The combined face+person step (one upload, one chain of ops with YOLOv8n,
-one packed download) against the JAX package's combined program, and
-against the port's separate face and person programs on one upload.
+one packed download) against the JAX package's combined program, its face
+half against the port's separate face program on the same wire; and
+``submit_faces_and_persons``, the main pass's one dispatch rule, on the
+backends wired as the GUI wires them.
 
 Tolerances: identical valid slots; boxes and landmarks atol 1e-2 px; feats
 cosine ≥ 0.9999; quality rtol 1e-3 (a variance of the warped chip); person
 boxes atol 1e-2 px, scores atol 1e-4.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -175,31 +179,24 @@ def test_combined_wire_program_matches_jax(pair, person_pair):
     _check(got_face, want_face)
     _check_person(got_person, want_person)
     assert want_person["mask"][0].any() and want_person["mask"][3].sum() == 0
-    # shared upload: the combined step and the separate programs agree
-    dev = tb.upload_shared(frames)
-    face_a = tb.submit_device(dev, valid)()
-    person_a = tp.submit_device(dev, valid)()
-    face_b, person_b = tb.submit_device_with_person(tp, dev, valid)()
-    for k in face_a:
-        np.testing.assert_allclose(face_a[k], face_b[k], atol=1e-5,
+    # the face half is the separate face program on the same i420 wire
+    separate = tb.submit_batch(frames, valid)()
+    for k in separate:
+        np.testing.assert_allclose(got_face[k], separate[k], atol=1e-5,
                                    err_msg=k)
-        np.testing.assert_allclose(face_b[k], got_face[k], atol=1e-5,
-                                   err_msg=k)
-    for k in ("boxes", "scores", "mask"):
-        np.testing.assert_array_equal(person_a[k], person_b[k], err_msg=k)
-        np.testing.assert_array_equal(person_b[k], got_person[k], err_msg=k)
 
 
 def test_recovery_facade_exposes_the_combined_program(pair, person_pair):
-    """RecoveringFaceBackend mirrors the inner backend's combined entry
-    points, so the main pass takes its combined-wire branch."""
+    """RecoveringFaceBackend mirrors the inner backend's combined entry,
+    and only where the inner backend has it, so the main pass takes the
+    combined step."""
     jb, tb = pair
     _, tp = person_pair
     rec = TR.RecoveringFaceBackend(tb, TR.RecoveryPolicy(rot_adaptive=False))
-    for name in ("upload_shared", "submit_device",
-                 "submit_device_with_person", "submit_wire_with_person"):
-        assert hasattr(rec, name), name
-    assert hasattr(tp, "_fused")
+    assert hasattr(rec, "submit_wire_with_person")
+    assert not hasattr(TR.RecoveringFaceBackend(TB.OracleBackend(None)),
+                       "submit_wire_with_person")
+    assert hasattr(tp, "detect_device")
     frames = _frames_with_persons()
     valid = np.array([True, True, True, False])
     face, person = rec.submit_wire_with_person(tp, frames, valid)()
@@ -207,3 +204,69 @@ def test_recovery_facade_exposes_the_combined_program(pair, person_pair):
     np.testing.assert_array_equal(person["mask"], want_person["mask"])
     np.testing.assert_array_equal(face["mask"], want_face["mask"])
     assert set(face) >= {"boxes", "mask", "feats", "quality"}
+
+
+def _spy(monkeypatch, calls, backend, *names):
+    """Wrap ``names`` on ``backend`` to append each call's name to
+    ``calls``."""
+    for name in names:
+        real = getattr(backend, name)
+
+        def spy(*a, _real=real, _name=name, **k):
+            calls.append(_name)
+            return _real(*a, **k)
+
+        monkeypatch.setattr(backend, name, spy)
+
+
+@pytest.mark.parametrize("wiring", ["gui", "oracles", "no_person"])
+def test_gui_wiring_dispatches_through_one_rule(wiring, monkeypatch, pair,
+                                                person_pair):
+    """The GUI wraps its face backend (the recovery facade) and its person
+    detector in LazyBackend. The one dispatch rule still takes the combined
+    step for them and returns the unwrapped backends' results; backends
+    without it (the test oracles, or no person detector) get a
+    ``submit_batch`` each and the same ``(faces, persons or None)`` pair."""
+    frames = _frames_with_persons()
+    valid = np.array([True, True, True, False])
+    idxs = np.arange(4)
+    calls = []
+    if wiring == "oracles":
+        sv = SimpleNamespace(truth={
+            0: [FacePlacement(0, 1, (20, 10, 80, 90))],
+            1: [FacePlacement(1, 2, (90, 40, 150, 115))]})
+        face, person = TB.OracleBackend(sv), TB.OraclePersonBackend(sv)
+        want = (face.extract_batch(frames, valid, idxs),
+                person.detect_batch(frames, valid, idxs))
+        _spy(monkeypatch, calls, face, "submit_batch")
+        _spy(monkeypatch, calls, person, "submit_batch")
+        expect = ["submit_batch", "submit_batch"]
+    else:
+        _, tb = pair
+        _, tp = person_pair
+        face = TR.RecoveringFaceBackend(
+            tb, TR.RecoveryPolicy(rot_adaptive=False))
+        person = tp if wiring == "gui" else None
+        if person is None:
+            want = (tb.submit_batch(frames, valid)(), None)
+        else:
+            want = tb.submit_wire_with_person(tp, frames, valid)()
+        _spy(monkeypatch, calls, tb, "submit_batch",
+             "submit_wire_with_person")
+        expect = ["submit_wire_with_person" if person else "submit_batch"]
+    lazy_face = TB.LazyBackend(lambda: face)
+    lazy_person = None if person is None else TB.LazyBackend(lambda: person)
+    fetch = TB.submit_faces_and_persons(lazy_face, lazy_person, frames,
+                                        valid, idxs)
+    assert calls == expect
+    got = fetch()
+    for k in want[0]:
+        np.testing.assert_allclose(got[0][k], want[0][k], atol=1e-5,
+                                   err_msg=k)
+    assert got[0]["mask"].any()
+    if want[1] is None:
+        assert got[1] is None
+        return
+    for k in ("boxes", "scores", "mask"):
+        np.testing.assert_array_equal(got[1][k], want[1][k], err_msg=k)
+    assert got[1]["mask"].any()

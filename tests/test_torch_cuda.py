@@ -199,8 +199,9 @@ def test_default_configuration_run_on_the_card(cuda, tmp_path, monkeypatch):
 
 @pytest.mark.cuda
 def test_combined_program_matches_separate_programs(cuda):
-    """One upload, one chain of ops, one download: the same slots as the
-    face and person programs run one after the other on the same batch."""
+    """One upload, one chain of ops, one download: the same face slots as
+    the face program on the same batch, and the same person slots as the
+    person program on the BGR that the same wire converts to."""
     import numpy as np
 
     from person_capture_tpu_torch.models import arcface as AF
@@ -224,17 +225,16 @@ def test_combined_program_matches_separate_programs(cuda):
                                                     240 + 10 * i, 190)))
     valid = np.ones(16, bool)
     valid[-3:] = False
-    dev = face.upload_shared(frames)
-    face_a = face.submit_device(dev, valid)()
-    person_a = person.submit_device(dev, valid)()
-    for combined in (face.submit_device_with_person(person, dev, valid),
-                     face.submit_wire_with_person(person, frames, valid)):
-        face_b, person_b = combined()
-        np.testing.assert_array_equal(face_b["mask"], face_a["mask"])
-        np.testing.assert_array_equal(person_b["mask"], person_a["mask"])
-        m = person_a["mask"]
-        np.testing.assert_allclose(person_b["boxes"][m], person_a["boxes"][m],
-                                   atol=0.5)
+    face_a = face.submit_batch(frames, valid)()
+    person_a = {k: v.cpu().numpy() for k, v in person.detect_device(
+        face._convert(face._send(frames))).items()}
+    person_a["mask"] &= valid[:, None]
+    face_b, person_b = face.submit_wire_with_person(person, frames, valid)()
+    np.testing.assert_array_equal(face_b["mask"], face_a["mask"])
+    np.testing.assert_array_equal(person_b["mask"], person_a["mask"])
+    m = person_a["mask"]
+    np.testing.assert_allclose(person_b["boxes"][m], person_a["boxes"][m],
+                               atol=0.5)
     assert person_a["mask"][:13:2].any(axis=1).all()
     assert face_a["mask"].any()
 

@@ -170,14 +170,14 @@ def test_defaults_match_jax_pipeline(body_fixture, tmp_path, monkeypatch):
     def count_persons(runtime):
         person = runtime["person"]
         assert person.dtype == torch.float32 and person.det_size == 640
-        fused = person._fused
+        detect = person.detect_device
 
-        def counted(frames, conf):
-            out = fused(frames, conf)
+        def counted(frames):
+            out = detect(frames)
             found.append(int(out["mask"].sum()))
             return out
 
-        person._fused = counted
+        person.detect_device = counted
 
     size = dict(det=2 * DET, w=2 * W, h=2 * H)
     want = _run(JM, JArraySource, d, planes, tmp_path / "jax",
